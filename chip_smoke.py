@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (mercury_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from mercury_tpu_torch/csrc (first use, into
+build/mercury_tpu_torch/), then:
+  1. holds each kernel against its plain PyTorch version at the receive
+     path's shapes (batch 256) and times both with CUDA events;
+  2. drives the port's main path, TxChain.transmit -> awgn_passband ->
+     RxChain.receive, at CONFIG_3 (BPSK 4/16, deep sync) and CONFIG_9
+     (QPSK 8/16) with batch 256 at Es/N0 12 dB: every row must decode to
+     the payload sent, both kernels must have been launched, and the first
+     rows must agree with the CPU run of the same buffer (plain versions);
+  3. decodes the reference's CONFIG_3 and CONFIG_9 capture buffers
+     (tests/golden) to their reference bytes.
+Any failure raises (non-zero exit). Without a CUDA device it exits non-zero
+before printing a result. The last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from mercury_tpu.core.geometry import build_geometry
+from mercury_tpu_torch import native
+from mercury_tpu_torch.channel import sim
+from mercury_tpu_torch.dsp import kernels
+from mercury_tpu_torch.modem.rx import RxChain
+from mercury_tpu_torch.modem.tx import TxChain
+
+BATCH = 256
+ESN0_DB = 12.0
+GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+KERNELS = {
+    "mix_fir_decimate": ("mercury_tpu_torch/csrc/mix_fir_decimate.cu",
+                         "mercury_tpu/dsp/pallas_kernels.py:143"),
+    "deep_mf_score": ("mercury_tpu_torch/csrc/deep_mf_score.cu",
+                      "mercury_tpu/dsp/pallas_kernels.py:298"),
+}
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Mean device time of fn() over reps launches, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def golden(name: str) -> np.ndarray:
+    meta = {}
+    for f in sorted(GOLDEN.glob("meta*.json")):
+        meta.update(json.loads(f.read_text()))
+    info = meta[name]
+    return np.fromfile(GOLDEN / f"{name}.bin",
+                       dtype=np.dtype(info["dtype"])).reshape(info["shape"])
+
+
+def check_mix_fir_decimate(rx: RxChain, gen: torch.Generator) -> dict:
+    """TS form [256, 118592] stride 4 and the per-row-start data-FIR form
+    (CONFIG_3 shapes) against the plain version: max abs error <= 1e-4."""
+    g = rx.geom
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    dev = rx.device
+    pb = 0.3 * torch.randn((BATCH, n), generator=gen, device=dev)
+    osc = rx._osc_const(n)
+    ts = (pb, osc, rx._fir_ts, g.interp)
+    err_ts = (kernels.mix_fir_decimate(*ts)
+              - kernels.mix_fir_decimate_ref(*ts)).abs().max().item()
+    ntaps = rx._fir_data.shape[0]
+    frame = g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
+    start = torch.randint(0, n - frame, (BATCH,), generator=gen, device=dev)
+    row = dict(start=start, n_out=frame // g.interp,
+               offset=ntaps - 1 - (ntaps - 1) // 2)
+    data = (pb, osc, rx._fir_data, g.interp)
+    err_data = (kernels.mix_fir_decimate(*data, **row)
+                - kernels.mix_fir_decimate_ref(*data, **row)).abs().max().item()
+    print(f"mix_fir_decimate: max abs err TS {err_ts:.3e}, data FIR "
+          f"{err_data:.3e} (limit 1e-4)")
+    assert err_ts <= 1e-4 and err_data <= 1e-4
+    out = {"max_abs_err": max(err_ts, err_data),
+           "ms": cuda_ms(lambda: kernels.mix_fir_decimate(*ts)),
+           "plain_ms": cuda_ms(lambda: kernels.mix_fir_decimate_ref(*ts))}
+    out["data_ms"] = cuda_ms(lambda: kernels.mix_fir_decimate(*data, **row))
+    out["data_plain_ms"] = cuda_ms(
+        lambda: kernels.mix_fir_decimate_ref(*data, **row))
+    print(f"mix_fir_decimate TS [{BATCH},{n}] s4: kernel {out['ms']:.4f} ms, "
+          f"plain {out['plain_ms']:.4f} ms; data FIR -> [{BATCH},"
+          f"{frame // g.interp}]: kernel {out['data_ms']:.4f} ms, plain "
+          f"{out['data_plain_ms']:.4f} ms")
+    return out
+
+
+def check_deep_mf_score(rx: RxChain, gen: torch.Generator) -> dict:
+    """Whole-buffer scan [256,14824]x[9,4,136] w=7140 and per-candidate
+    refine [768,1088]x[3,4,136] w=272 with planted peaks: argmax equal on
+    every planted row, scores within rtol 1e-3 (atol 1e-3)."""
+    dev = rx.device
+    tmpl = rx._mf_templates[:, ::8]
+    lp, s = tmpl.shape
+    out = {"max_abs_err": 0.0}
+    for label, rows, freqs, window in (
+            ("scan", BATCH, np.arange(-4, 5) * 30.0, 7140),
+            ("refine", 3 * BATCH, (0.0, 93.75, -93.75), 272)):
+        bank = rx._rotated_bank(tmpl, freqs, 8)
+        seg_len = 2 * window + lp * s
+        seg = torch.complex(torch.randn((rows, seg_len), generator=gen,
+                                        device=dev),
+                            torch.randn((rows, seg_len), generator=gen,
+                                        device=dev)) * 0.05
+        hyp = torch.randint(0, bank.shape[0], (rows,), generator=gen,
+                            device=dev)
+        lag = torch.randint(0, 2 * window + 1, (rows,), generator=gen,
+                            device=dev)
+        idx = lag[:, None] + torch.arange(lp * s, device=dev)[None]
+        seg.scatter_add_(1, idx, bank[hyp].reshape(rows, -1))
+        got = kernels.deep_mf_score(seg, bank, window)
+        want = kernels.deep_mf_score_ref(seg, bank, window)
+        r = torch.arange(rows, device=dev)
+        got_arg = got.argmax(-1)[r, hyp]
+        want_arg = want.argmax(-1)[r, hyp]
+        assert torch.equal(got_arg, want_arg) and torch.equal(got_arg, lag), (
+            f"{label}: argmax differs on "
+            f"{int((got_arg != want_arg).sum())} planted rows")
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+        err = (got - want).abs().max().item()
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        k_ms = cuda_ms(lambda: kernels.deep_mf_score(seg, bank, window), 5)
+        p_ms = cuda_ms(lambda: kernels.deep_mf_score_ref(seg, bank, window), 5)
+        if label == "scan":
+            out["ms"], out["plain_ms"] = k_ms, p_ms
+        else:
+            out["refine_ms"], out["refine_plain_ms"] = k_ms, p_ms
+        print(f"deep_mf_score {label} [{rows},{seg_len}]x{list(bank.shape)} "
+              f"w={window}: max abs err {err:.3e}, argmax equal on {rows} "
+              f"planted rows; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    return out
+
+
+def drive_main_path(cfg: int, dev: torch.device) -> dict:
+    """TX -> AWGN -> RX at batch 256; every row must decode to its payload."""
+    g = build_geometry(cfg)
+    tx, rx = TxChain(g, device=dev), RxChain(g, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg)
+    payload = torch.randint(0, 256, (BATCH, g.frame_bytes), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    buf_len = g.nofdm * g.buffer_nsymb * g.interp
+    delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = tx.transmit(payload)
+    buf = sim.awgn_passband(frames, sim.sigma_for_esn0(ESN0_DB), delay,
+                            buf_len, gen)
+    torch.cuda.synchronize()
+    t_tx = time.perf_counter() - t0
+    times = []
+    for _ in range(4):              # first call: cuFFT plans, caches
+        t0 = time.perf_counter()
+        res = rx.receive(buf)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    grew = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+    n_ok = int(res.crc_ok.sum())
+    assert n_ok == BATCH, f"CONFIG_{cfg}: only {n_ok}/{BATCH} rows decoded"
+    assert torch.equal(res.payload, payload), f"CONFIG_{cfg}: payload differs"
+    assert all(v > 0 for v in grew.values()), f"CONFIG_{cfg}: launches {grew}"
+    assert torch.isfinite(res.snr_db).all() and torch.isfinite(
+        res.freq_offset).all()
+    assert (res.delay - delay).abs().max().item() <= g.ngi * g.interp
+    # the first rows of the same buffer through the CPU plain versions
+    rx_cpu = RxChain(g)
+    ref = rx_cpu.receive(buf[:4].cpu())
+    assert torch.equal(ref.crc_ok, res.crc_ok[:4].cpu())
+    assert torch.equal(ref.delay, res.delay[:4].cpu())
+    assert torch.equal(ref.payload, res.payload[:4].cpu())
+    assert (ref.iters - res.iters[:4].cpu()).abs().max().item() <= 1
+    t_rx = min(times[1:])
+    msps = BATCH * buf_len / t_rx / 1e6
+    print(f"CONFIG_{cfg}: {n_ok}/{BATCH} decoded, payloads equal; transmit + "
+          f"channel {t_tx * 1e3:.2f} ms; receive first {times[0] * 1e3:.2f} "
+          f"ms, steady {t_rx * 1e3:.2f} ms (min of {len(times) - 1}) = "
+          f"{msps:.3f} Msamples/s; iters mean "
+          f"{res.iters.double().mean().item():.3f}; launches {grew}; "
+          f"CPU plain run agrees on rows 0-3")
+    return {"receive_ms": t_rx * 1e3, "msamples_per_s": msps,
+            "launches": grew}
+
+
+def decode_golden(cfg: int, dev: torch.device) -> None:
+    rx = RxChain(build_geometry(cfg), device=dev)
+    res = rx.receive(torch.as_tensor(golden(f"cfg{cfg}_rx_buffer")[None]))
+    want = torch.as_tensor(golden(f"cfg{cfg}_rx_bytes").astype(np.uint8))
+    assert bool(res.crc_ok[0]), f"cfg{cfg}_rx_buffer: CRC failed"
+    assert torch.equal(res.payload[0].cpu(), want), f"cfg{cfg}: bytes differ"
+    print(f"golden cfg{cfg}_rx_buffer: decoded to the reference bytes "
+          f"(snr {res.snr_db[0].item():.2f} dB)")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    native.load_library()
+    print(f"kernel library {native.library_path().name}: ready in "
+          f"{time.perf_counter() - t0:.2f} s (build at first use)")
+
+    dev = torch.device("cuda")
+    rx3 = RxChain(build_geometry(3), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    stats = {"mix_fir_decimate": check_mix_fir_decimate(rx3, gen),
+             "deep_mf_score": check_deep_mf_score(rx3, gen)}
+
+    kernels.reset_launch_counts()
+    for cfg in (3, 9):
+        drive_main_path(cfg, dev)
+    launches = dict(kernels.LAUNCHES)
+    for cfg in (3, 9):
+        decode_golden(cfg, dev)
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": launches[name],
+         "max_abs_err": stats[name]["max_abs_err"],
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+        for name, (src, tpu) in KERNELS.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

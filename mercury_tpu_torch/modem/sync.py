@@ -1,0 +1,131 @@
+"""Synchronization: Schmidl-Cox time sync, known-preamble matched filter,
+Moose fine CFO (PyTorch port of the OFDM parts of `mercury_tpu.modem.sync`).
+
+The Schmidl-Cox window sums are prefix-sum differences (cumsum, then
+difference, as the JAX package computes them off the TPU); the
+matched-filter scores go through `dsp.kernels.deep_mf_score`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mercury_tpu.core.geometry import ModeGeometry
+from mercury_tpu_torch.dsp import kernels
+
+
+def _comb(prefix: torch.Tensor, n_sections: int, stride: int,
+          out_len: int) -> torch.Tensor:
+    """C[i] = sum_{l<n_sections} prefix[i + l*stride], for i < out_len."""
+    acc = prefix[..., :out_len]
+    for l in range(1, n_sections):
+        acc = acc + prefix[..., l * stride: l * stride + out_len]
+    return acc
+
+
+def _box_sum(x: torch.Tensor, length: int, n_out: int,
+             stride: int) -> torch.Tensor:
+    """S[j] = sum_{k<length} x[..., j*stride + k] for j < n_out."""
+    c = torch.cumsum(x, dim=-1)
+    c = torch.cat([torch.zeros_like(c[..., :1]), c], dim=-1)
+    idx0 = stride * torch.arange(n_out, device=x.device)
+    return c[..., length:][..., idx0] - c[..., idx0]
+
+
+def schmidl_cox_metric(bb: torch.Tensor, geom: ModeGeometry, decim: int = 1,
+                       scan: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalized Schmidl-Cox metric and coarse CFO (Hz) for every candidate
+    start: bb [B, n] at the interp rate / decim -> ([B, n_scan], [B, n_scan]);
+    candidate i is interp-rate offset i*decim*scan. GI-lag and half-symbol
+    lag correlations (|.| per lag type) summed over the preamble symbols,
+    normalized by sqrt(norm_a*norm_b), with the reference's 1e-3 energy gate
+    plus a -20 dB gate relative to the strongest window."""
+    r = geom.interp // decim
+    if r * decim != geom.interp:
+        raise ValueError("decim must divide the interpolation rate")
+    nfft_r, ngi_r = geom.nfft * r, geom.ngi * r
+    half_r = (geom.nfft // 2) * r
+    s = nfft_r + ngi_r
+    lp = geom.preamble_nsymb
+    n = bb.shape[-1]
+    n_cand = max(n - lp * s, 1)
+    if scan != 1 and not (s % scan == 0 and ngi_r % scan == 0
+                          and nfft_r % scan == 0 and half_r % scan == 0):
+        raise ValueError(f"scan {scan} must divide every window offset")
+    n_scan = -(-n_cand // scan)
+    s_c = s // scan
+
+    p1 = bb[..., :-nfft_r] * torch.conj(bb[..., nfft_r:])
+    p2 = bb[..., :-half_r] * torch.conj(bb[..., half_r:])
+    e = bb.real ** 2 + bb.imag ** 2
+    cs = (lp - 1) * s // scan
+    b1 = _box_sum(p1, ngi_r, n_scan + cs, scan)
+    b2 = _box_sum(p2, half_r, n_scan + cs + ngi_r // scan, scan)
+    ea = _box_sum(e, ngi_r + half_r, n_scan + cs, scan)
+    eb1 = _box_sum(e, ngi_r, n_scan + cs + nfft_r // scan, scan)
+    eb2 = _box_sum(e, half_r, n_scan + cs + (ngi_r + half_r) // scan, scan)
+
+    gi_c = _comb(b1, lp, s_c, n_scan)
+    half_c = _comb(b2[..., ngi_r // scan:], lp, s_c, n_scan)
+    norm_a = _comb(ea, lp, s_c, n_scan)
+    norm_b = (_comb(eb1[..., nfft_r // scan:], lp, s_c, n_scan)
+              + _comb(eb2[..., (ngi_r + half_r) // scan:], lp, s_c, n_scan))
+    corr = torch.abs(gi_c) + torch.abs(half_c)
+    denom = torch.sqrt(torch.clamp(norm_a * norm_b, min=1e-30))
+    floor = torch.clamp(1e-2 * torch.amax(norm_a, dim=-1, keepdim=True),
+                        min=1e-3)
+    metric = torch.where((norm_a < floor) | (norm_b < floor), 0.0,
+                         corr / denom)
+    # half-symbol lag phase -> coarse CFO, unambiguous over +-fs/Nfft; the
+    # reference's conjugate-free mixer negates the textbook sign
+    lag_s = (geom.nfft // 2) * geom.interp / geom.fs
+    cfo = torch.atan2(half_c.imag, half_c.real) / (2 * math.pi * lag_s)
+    return metric, cfo
+
+
+def bank_scores(seg: torch.Tensor, bank: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """Normalized matched-filter scores of bank [A, Lp, S] against seg
+    [B, L] at every lag 0..2*window -> [B, A, 2*window+1] (sum over the
+    preamble symbols, not yet divided by Lp)."""
+    nfft = 1
+    while nfft < seg.shape[-1]:
+        nfft *= 2
+    return kernels.deep_mf_score(seg, bank, window, nfft)
+
+
+def matched_filter_refine_bank(seg: torch.Tensor, start: torch.Tensor,
+                               bank: torch.Tensor, window: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Best lag per (row, template variant): seg [B, 2*window + Lp*S],
+    start [B] absolute offset of seg[0], bank [A, Lp, S] ->
+    (delay [B, A] = start + argmax lag, score [B, A] = best score / Lp)."""
+    lp = bank.shape[1]
+    score = bank_scores(seg, bank, window)
+    best = torch.argmax(score, dim=-1)                         # [B, A]
+    delay = start[:, None] + best
+    return delay, torch.gather(score, -1, best[..., None])[..., 0] / lp
+
+
+def moose_cfo(frame_decim: torch.Tensor, geom: ModeGeometry,
+              pad_map: torch.Tensor) -> torch.Tensor:
+    """Fine fractional CFO (Hz) from the preamble half-symbol repetition
+    (reference carrier_sampling_frequency_sync, ofdm.cc:540-595):
+    frame_decim [B, >= preamble_nsymb*Nofdm] decimated baseband starting at
+    the frame -> [B]."""
+    nfft, ngi, nc = geom.nfft, geom.ngi, geom.nc
+    nsym = max(geom.preamble_nsymb // 2, 1)
+    subc = geom.bandwidth / nc
+    mul = torch.zeros(frame_decim.shape[:-1], dtype=frame_decim.dtype,
+                      device=frame_decim.device)
+    for j in range(nsym):
+        base = ngi + j * (nfft + ngi)
+        h1 = frame_decim[..., base: base + nfft // 2]
+        h2 = frame_decim[..., base + nfft // 2: base + nfft]
+        d1 = (torch.fft.fft(torch.cat([h1, h1], -1), dim=-1) / nfft)[..., pad_map]
+        d2 = (torch.fft.fft(torch.cat([h2, h2], -1), dim=-1) / nfft)[..., pad_map]
+        mul = mul + torch.sum(torch.conj(d2) * d1, dim=-1)
+    angle = torch.atan2(mul.imag, mul.real)
+    return (angle / math.pi) * subc
