@@ -7,13 +7,18 @@ Builds the CUDA kernels from mercury_tpu_torch/csrc (first use, into
 build/mercury_tpu_torch/), then:
   1. holds each kernel against its plain PyTorch version at the receive
      path's shapes (batch 256) and times both with CUDA events;
-  2. drives the port's main path, TxChain.transmit -> awgn_passband ->
-     RxChain.receive, at CONFIG_3 (BPSK 4/16, deep sync) and CONFIG_9
-     (QPSK 8/16) with batch 256 at Es/N0 12 dB: every row must decode to
-     the payload sent, both kernels must have been launched, and the first
-     rows must agree with the CPU run of the same buffer (plain versions);
-  3. decodes the reference's CONFIG_3 and CONFIG_9 capture buffers
-     (tests/golden) to their reference bytes.
+  2. drives the port's receive paths, TxChain.transmit -> awgn_passband ->
+     RxChain.receive, with batch 256 at Es/N0 12 dB: CONFIG_3 (BPSK 4/16,
+     noncoherent deep sync), CONFIG_9 (QPSK 8/16) and CONFIG_0 (BPSK 1/16,
+     coherent deep acquisition). Each path runs with the launch counts set
+     to 0 just before it and read just after: every row must decode to the
+     payload sent, every kernel of the path must have been launched, and
+     the first rows must agree with the CPU run of the same buffer (plain
+     versions). CONFIG_0 runs again at -4 dB (lower until a row's first
+     decode fails), where the CRC-gated rescue decode must run and 7/8 of
+     the rows must decode;
+  3. decodes the reference's CONFIG_0, CONFIG_3 and CONFIG_9 capture
+     buffers (tests/golden) to their reference bytes.
 Any failure raises (non-zero exit). Without a CUDA device it exits non-zero
 before printing a result. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -43,7 +48,15 @@ KERNELS = {
                          "mercury_tpu/dsp/pallas_kernels.py:143"),
     "deep_mf_score": ("mercury_tpu_torch/csrc/deep_mf_score.cu",
                       "mercury_tpu/dsp/pallas_kernels.py:298"),
+    "deep_mf_max": ("mercury_tpu_torch/csrc/deep_mf_score.cu",
+                    "mercury_tpu/dsp/pallas_kernels.py:404"),
+    "pilot_cand_score": ("mercury_tpu_torch/csrc/pilot_cand_score.cu",
+                         "mercury_tpu/dsp/pallas_kernels.py:573"),
 }
+# the kernels each receive path must launch
+PATH_KERNELS = {3: ("mix_fir_decimate", "deep_mf_score"),
+                9: ("mix_fir_decimate", "deep_mf_score"),
+                0: ("mix_fir_decimate", "deep_mf_max", "pilot_cand_score")}
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -150,34 +163,114 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator) -> dict:
     return out
 
 
-def drive_main_path(cfg: int, dev: torch.device) -> dict:
-    """TX -> AWGN -> RX at batch 256; every row must decode to its payload."""
-    g = build_geometry(cfg)
-    tx, rx = TxChain(g, device=dev), RxChain(g, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(cfg)
+def check_deep_mf_max(rx: RxChain, gen: torch.Generator) -> dict:
+    """Coherent scan [256,14824]x[61,1,544] w=7140 with one planted peak
+    per row: smax within rtol/atol 1e-3; sarg equal on every planted lag and
+    wherever the plain top-two margin exceeds 1e-3; argmax over lags equal
+    on every planted row."""
+    dev = rx.device
+    _, bank, _ = rx._coherent_banks(8)
+    window = 7140
+    seg_len = 2 * window + bank.shape[-1]
+    seg = torch.complex(torch.randn((BATCH, seg_len), generator=gen,
+                                    device=dev),
+                        torch.randn((BATCH, seg_len), generator=gen,
+                                    device=dev)) * 0.05
+    hyp = torch.randint(0, bank.shape[0], (BATCH,), generator=gen, device=dev)
+    lag = torch.randint(0, 2 * window + 1, (BATCH,), generator=gen,
+                        device=dev)
+    idx = lag[:, None] + torch.arange(bank.shape[-1], device=dev)[None]
+    seg.scatter_add_(1, idx, bank[hyp, 0])
+    smax, sarg = kernels.deep_mf_max(seg, bank, window)
+    ref_max, ref_arg = kernels.deep_mf_max_ref(seg, bank, window)
+    torch.testing.assert_close(smax, ref_max, rtol=1e-3, atol=1e-3)
+    r = torch.arange(BATCH, device=dev)
+    assert torch.equal(sarg[r, lag], hyp) and torch.equal(ref_arg[r, lag], hyp)
+    assert torch.equal(smax.argmax(-1), lag) and torch.equal(
+        ref_max.argmax(-1), lag), "deep_mf_max: argmax over lags differs"
+    top2 = kernels.deep_mf_score_ref(seg, bank, window).topk(2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > 1e-3
+    n_diff = int((sarg != ref_arg)[clear].sum())
+    assert n_diff == 0, f"deep_mf_max: sarg differs at {n_diff} clear lags"
+    err = (smax - ref_max).abs().max().item()
+    out = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: kernels.deep_mf_max(seg, bank, window), 5),
+           "plain_ms": cuda_ms(
+               lambda: kernels.deep_mf_max_ref(seg, bank, window), 5)}
+    print(f"deep_mf_max [{BATCH},{seg_len}]x{list(bank.shape)} w={window}: "
+          f"max abs err {err:.3e}; sarg equal on {BATCH} planted lags and "
+          f"{int(clear.sum())}/{clear.numel()} lags with a clear margin; "
+          f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms")
+    return out
+
+
+def check_pilot_cand_score(rx: RxChain, gen: torch.Generator) -> dict:
+    """[256,14824] rows, M=32, bank [61,48,136]: row 1 half-silent, row 2
+    silent, candidates clipped at both ends; rtol 1e-4, atol 1e-5."""
+    dev = rx.device
+    _, _, bank = rx._coherent_banks(8)
+    n_dec, m = 14824, 32
+    span = bank.shape[1] * bank.shape[2]
+    bb = torch.complex(torch.randn((BATCH, n_dec), generator=gen, device=dev),
+                       torch.randn((BATCH, n_dec), generator=gen, device=dev))
+    bb[1, n_dec // 2:] = 0
+    bb[2] = 0
+    idx0 = torch.randint(0, n_dec - span + 1, (BATCH, m), generator=gen,
+                         device=dev)
+    idx0[:, 0] = -100
+    idx0[:, 1] = n_dec
+    fidx = torch.randint(0, bank.shape[0], (BATCH, m), generator=gen,
+                         device=dev)
+    args = (bb, idx0, fidx, bank)
+    got = kernels.pilot_cand_score(*args)
+    want = kernels.pilot_cand_score_ref(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert (got[2] == 0).all() and (got[0] > 0).all()
+    err = (got - want).abs().max().item()
+    out = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: kernels.pilot_cand_score(*args)),
+           "plain_ms": cuda_ms(lambda: kernels.pilot_cand_score_ref(*args))}
+    print(f"pilot_cand_score [{BATCH},{n_dec}] M={m} x{list(bank.shape)}: "
+          f"max abs err {err:.3e} (bursty, silent and clipped cases); kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms")
+    return out
+
+
+def make_buffer(g, dev: torch.device, esn0: float, seed: int):
+    tx = TxChain(g, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     payload = torch.randint(0, 256, (BATCH, g.frame_bytes), generator=gen,
                             device=dev, dtype=torch.uint8)
     buf_len = g.nofdm * g.buffer_nsymb * g.interp
     delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
-    before = dict(kernels.LAUNCHES)
+    buf = sim.awgn_passband(tx.transmit(payload), sim.sigma_for_esn0(esn0),
+                            delay, buf_len, gen)
+    return buf, payload, delay
+
+
+def drive_main_path(cfg: int, dev: torch.device) -> dict:
+    """TX -> AWGN -> RX at batch 256; every row must decode to its payload
+    and every kernel of the path must launch (counts from 0 for this run)."""
+    g = build_geometry(cfg)
+    rx = RxChain(g, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frames = tx.transmit(payload)
-    buf = sim.awgn_passband(frames, sim.sigma_for_esn0(ESN0_DB), delay,
-                            buf_len, gen)
+    buf, payload, delay = make_buffer(g, dev, ESN0_DB, cfg)
     torch.cuda.synchronize()
     t_tx = time.perf_counter() - t0
     times = []
+    kernels.reset_launch_counts()
     for _ in range(4):              # first call: cuFFT plans, caches
         t0 = time.perf_counter()
         res = rx.receive(buf)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    grew = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+    launches = dict(kernels.LAUNCHES)
     n_ok = int(res.crc_ok.sum())
     assert n_ok == BATCH, f"CONFIG_{cfg}: only {n_ok}/{BATCH} rows decoded"
     assert torch.equal(res.payload, payload), f"CONFIG_{cfg}: payload differs"
-    assert all(v > 0 for v in grew.values()), f"CONFIG_{cfg}: launches {grew}"
+    assert all(launches[k] > 0 for k in PATH_KERNELS[cfg]), (
+        f"CONFIG_{cfg}: launches {launches}")
     assert torch.isfinite(res.snr_db).all() and torch.isfinite(
         res.freq_offset).all()
     assert (res.delay - delay).abs().max().item() <= g.ngi * g.interp
@@ -189,15 +282,52 @@ def drive_main_path(cfg: int, dev: torch.device) -> dict:
     assert torch.equal(ref.payload, res.payload[:4].cpu())
     assert (ref.iters - res.iters[:4].cpu()).abs().max().item() <= 1
     t_rx = min(times[1:])
+    buf_len = buf.shape[1]
     msps = BATCH * buf_len / t_rx / 1e6
     print(f"CONFIG_{cfg}: {n_ok}/{BATCH} decoded, payloads equal; transmit + "
           f"channel {t_tx * 1e3:.2f} ms; receive first {times[0] * 1e3:.2f} "
           f"ms, steady {t_rx * 1e3:.2f} ms (min of {len(times) - 1}) = "
           f"{msps:.3f} Msamples/s; iters mean "
-          f"{res.iters.double().mean().item():.3f}; launches {grew}; "
+          f"{res.iters.double().mean().item():.3f}; launches {launches}; "
           f"CPU plain run agrees on rows 0-3")
     return {"receive_ms": t_rx * 1e3, "msamples_per_s": msps,
-            "launches": grew}
+            "launches": launches}
+
+
+def drive_rescue(dev: torch.device) -> dict:
+    """CONFIG_0 at batch 256 at -4 dB (tests/test_rx.py:96-123's point), or
+    lower until some row's first decode fails: the rescue decode must run
+    and at least 7/8 of the rows must decode to their payloads."""
+    g = build_geometry(0)
+    rx = RxChain(g, device=dev)
+    for esn0 in (-4.0, -5.0, -6.0):
+        buf, payload, delay = make_buffer(g, dev, esn0, 100)
+        with torch.no_grad():
+            d1, cfo1, metric, _ = rx._acquire(buf)
+            first_ok = rx._decode_from(buf, d1, cfo1, metric).crc_ok
+        if not bool(first_ok.all()):
+            break
+        print(f"CONFIG_0 at {esn0} dB: every first decode passed, going lower")
+    assert not bool(first_ok.all()), "no first decode failed down to -6 dB"
+    at_start = (d1 - delay).abs() <= g.ngi * g.interp
+    kernels.reset_launch_counts()
+    res = rx.receive(buf)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ok = res.crc_ok
+    n_ok = int(ok.sum())
+    rescued = int((ok & ~first_ok).sum())
+    assert n_ok * 8 >= 7 * BATCH, f"CONFIG_0 at {esn0} dB: {n_ok}/{BATCH}"
+    assert torch.equal(res.payload[ok], payload[ok])
+    assert all(launches[k] > 0 for k in PATH_KERNELS[0]), launches
+    # two decodes: the first, and the rescue at the runner-up candidate
+    assert launches["mix_fir_decimate"] == 3, launches
+    print(f"CONFIG_0 at {esn0} dB: {n_ok}/{BATCH} decoded, payloads equal; "
+          f"first decode failed on {int((~first_ok).sum())} rows "
+          f"({int((~first_ok & at_start).sum())} of them at the true start), "
+          f"the rescue decode ran and recovered {rescued}; launches "
+          f"{launches}")
+    return {"launches": launches}
 
 
 def decode_golden(cfg: int, dev: torch.device) -> None:
@@ -229,15 +359,21 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rx3 = RxChain(build_geometry(3), device=dev)
+    rx0 = RxChain(build_geometry(0), device=dev)
     gen = torch.Generator(device=dev).manual_seed(1234)
     stats = {"mix_fir_decimate": check_mix_fir_decimate(rx3, gen),
-             "deep_mf_score": check_deep_mf_score(rx3, gen)}
+             "deep_mf_score": check_deep_mf_score(rx3, gen),
+             "deep_mf_max": check_deep_mf_max(rx0, gen),
+             "pilot_cand_score": check_pilot_cand_score(rx0, gen)}
+    del rx0, rx3
+    torch.cuda.empty_cache()
 
-    kernels.reset_launch_counts()
-    for cfg in (3, 9):
-        drive_main_path(cfg, dev)
-    launches = dict(kernels.LAUNCHES)
-    for cfg in (3, 9):
+    # each path from counts of 0, read just after it; the kernels line
+    # reports each kernel's launches summed over the paths
+    runs = [drive_main_path(cfg, dev)["launches"] for cfg in (3, 9, 0)]
+    runs.append(drive_rescue(dev)["launches"])
+    launches = {k: sum(r[k] for r in runs) for k in KERNELS}
+    for cfg in (0, 3, 9):
         decode_golden(cfg, dev)
 
     print(json.dumps({"kernels": [

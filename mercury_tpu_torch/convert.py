@@ -20,7 +20,8 @@ _DTYPES = {"real": torch.float32, "complex": torch.complex64,
 # receive-chain buffer name (as in both packages) -> kind
 RX_BUFFERS = {
     "_fir_ts": "real", "_fir_data": "real",
-    "_mf_templates": "complex", "_pilot_seq": "complex", "_const": "complex",
+    "_mf_templates": "complex", "_pil_templates": "complex",
+    "_pilot_seq": "complex", "_const": "complex",
     "_pil_dft_op": "complex",
     "_est_op": "real", "_est_pil_op": "real",
     "_pil_bins": "real", "_cell_bins": "real",

@@ -1,4 +1,4 @@
-"""The receive path's two hand-written CUDA kernels, each beside its plain
+"""The receive path's four hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
 A wrapper takes the plain version only for a tensor on the CPU. For a CUDA
@@ -14,7 +14,10 @@ import torch
 from mercury_tpu_torch import native
 from mercury_tpu_torch.dsp import ops
 
-LAUNCHES = {"mix_fir_decimate": 0, "deep_mf_score": 0}
+LAUNCHES = {"mix_fir_decimate": 0, "deep_mf_score": 0, "deep_mf_max": 0,
+            "pilot_cand_score": 0}
+# hypotheses per FFT pass of deep_mf_max_ref: bounds its [B, A, 2w+1] surface
+_MAX_CHUNK = 8
 
 
 def reset_launch_counts() -> None:
@@ -150,6 +153,27 @@ def deep_mf_score_ref(seg: torch.Tensor, bank: torch.Tensor, window: int,
     return score
 
 
+def _dmf_operands(seg: torch.Tensor, bank: torch.Tensor, window: int,
+                  name: str):
+    """Checks and kernel operands shared by deep_mf_score and deep_mf_max:
+    (seg, templates normalized per (a, l), energy prefix sums, floor)."""
+    _require(seg.device.type == "cuda", f"unsupported device {seg.device}")
+    _, seg_len = seg.shape
+    _, lp, s = bank.shape
+    _require(seg.dtype == torch.complex64 and bank.dtype == torch.complex64,
+             f"{name}: complex64 seg and bank required")
+    _require(bank.device == seg.device, f"{name}: bank on another device")
+    _require(seg_len >= 2 * window + lp * s,
+             f"{name}: segment {seg_len} shorter than 2*{window} + {lp}*{s}")
+    seg = seg.contiguous()
+    # per-(a, l) template normalization and the energy prefix sums stay in
+    # torch, as the JAX wrapper keeps them outside its pallas_call
+    t_norm = torch.sqrt(torch.sum(torch.abs(bank) ** 2, dim=-1, keepdim=True))
+    tmpl = (bank / t_norm).contiguous()
+    ce, e_floor = _energy_terms(seg, s)
+    return seg, tmpl, ce.contiguous(), e_floor[:, 0].contiguous()
+
+
 def deep_mf_score(seg: torch.Tensor, bank: torch.Tensor, window: int,
                   nfft: int | None = None) -> torch.Tensor:
     """Normalized matched-filter scores of bank [A, Lp, S] against seg
@@ -159,24 +183,10 @@ def deep_mf_score(seg: torch.Tensor, bank: torch.Tensor, window: int,
     for the JAX signature and not needed. Requires L >= 2*window + Lp*S."""
     if seg.device.type == "cpu":
         return deep_mf_score_ref(seg, bank, window, nfft)
-    _require(seg.device.type == "cuda", f"unsupported device {seg.device}")
+    seg, tmpl, ce, ef = _dmf_operands(seg, bank, window, "deep_mf_score")
     b, seg_len = seg.shape
     a, lp, s = bank.shape
     n_cand = 2 * window + 1
-    _require(seg.dtype == torch.complex64 and bank.dtype == torch.complex64,
-             "deep_mf_score: complex64 seg and bank required")
-    _require(bank.device == seg.device, "deep_mf_score: bank on another device")
-    _require(seg_len >= 2 * window + lp * s,
-             f"deep_mf_score: segment {seg_len} shorter than "
-             f"2*{window} + {lp}*{s}")
-    seg = seg.contiguous()
-    # per-(a, l) template normalization and the energy prefix sums stay in
-    # torch, as the JAX wrapper keeps them outside its pallas_call
-    t_norm = torch.sqrt(torch.sum(torch.abs(bank) ** 2, dim=-1, keepdim=True))
-    tmpl = (bank / t_norm).contiguous()
-    ce, e_floor = _energy_terms(seg, s)
-    ce = ce.contiguous()
-    ef = e_floor[:, 0].contiguous()
     out = torch.empty((b, a, n_cand), dtype=torch.float32, device=seg.device)
     lib = native.load_library()
     err = lib.dmf_launch(seg.data_ptr(), tmpl.data_ptr(), ce.data_ptr(),
@@ -184,4 +194,126 @@ def deep_mf_score(seg: torch.Tensor, bank: torch.Tensor, window: int,
                          n_cand, _stream(seg))
     _check(err, "deep_mf_score")
     LAUNCHES["deep_mf_score"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Matched-filter scores max-reduced over the bank
+# ---------------------------------------------------------------------------
+
+def deep_mf_max_ref(seg: torch.Tensor, bank: torch.Tensor, window: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: deep_mf_score_ref reduced over the hypothesis axis,
+    (max [B, 2w+1], first argmax [B, 2w+1] int64), as mercury_tpu
+    sync.coherent_scan_max computes it off the TPU. The bank goes through
+    in chunks with a running max (strict >, so the first hypothesis wins a
+    tie), which bounds the score surface held at once."""
+    smax = sarg = None
+    for a0 in range(0, bank.shape[0], _MAX_CHUNK):
+        score = deep_mf_score_ref(seg, bank[a0: a0 + _MAX_CHUNK], window)
+        c_max = torch.amax(score, dim=1)
+        c_arg = torch.argmax(score, dim=1) + a0
+        if smax is None:
+            smax, sarg = c_max, c_arg
+        else:
+            better = c_max > smax
+            smax = torch.where(better, c_max, smax)
+            sarg = torch.where(better, c_arg, sarg)
+    return smax, sarg
+
+
+def deep_mf_max(seg: torch.Tensor, bank: torch.Tensor, window: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """deep_mf_score of bank [A, Lp, S] against seg [B, L], reduced over A
+    -> (smax [B, 2w+1] float32, sarg [B, 2w+1] int64, the first a reaching
+    the max). CUDA: one kernel loops over A inside each block, so the
+    [B, A, 2w+1] surface never reaches device memory."""
+    if seg.device.type == "cpu":
+        return deep_mf_max_ref(seg, bank, window)
+    seg, tmpl, ce, ef = _dmf_operands(seg, bank, window, "deep_mf_max")
+    b, seg_len = seg.shape
+    a, lp, s = bank.shape
+    n_cand = 2 * window + 1
+    smax = torch.empty((b, n_cand), dtype=torch.float32, device=seg.device)
+    sarg = torch.empty((b, n_cand), dtype=torch.int64, device=seg.device)
+    lib = native.load_library()
+    err = lib.dmf_max_launch(seg.data_ptr(), tmpl.data_ptr(), ce.data_ptr(),
+                             ef.data_ptr(), smax.data_ptr(), sarg.data_ptr(),
+                             b, a, seg_len, lp, s, n_cand, _stream(seg))
+    _check(err, "deep_mf_max")
+    LAUNCHES["deep_mf_max"] += 1
+    return smax, sarg
+
+
+# ---------------------------------------------------------------------------
+# Pilot-lattice candidate scores
+# ---------------------------------------------------------------------------
+
+def _clip_candidates(n_dec: int, idx0: torch.Tensor, fidx: torch.Tensor,
+                     bank: torch.Tensor):
+    """Starts clipped so every segment lies inside the row, template rows
+    clipped to the bank (as the TPU kernel clips them)."""
+    f_n, nsym, s_d = bank.shape
+    _require(n_dec >= nsym * s_d,
+             f"pilot_cand_score: row of {n_dec} shorter than the "
+             f"{nsym}x{s_d} template")
+    return (torch.clamp(idx0.long(), 0, n_dec - nsym * s_d),
+            torch.clamp(fidx.long(), 0, f_n - 1))
+
+
+def pilot_cand_score_ref(bb_dec: torch.Tensor, idx0: torch.Tensor,
+                         fidx: torch.Tensor, bank: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain version, the XLA body of mercury_tpu sync.pilot_rescore
+    (sync.py:467-481): per row b and candidate m, the segment of bb_dec
+    [B, n_dec] at idx0[b, m] (Nsym symbols of S_d samples) against template
+    row fidx[b, m] of bank [F, Nsym, S_d], coherent within each symbol and
+    summed in magnitude over symbols whose energy clears the row's silence
+    floor, 1e-4 x the mean energy of the segments scored -> [B, M]."""
+    b, n_dec = bb_dec.shape
+    m = idx0.shape[1]
+    _, nsym, s_d = bank.shape
+    idx0, fidx = _clip_candidates(n_dec, idx0, fidx, bank)
+    pos = idx0[..., None] + torch.arange(nsym * s_d, device=bb_dec.device)
+    seg = torch.gather(bb_dec, 1, pos.reshape(b, -1)).reshape(b, m, nsym, s_d)
+    bk = torch.conj_physical(bank)[fidx]               # [B, M, Nsym, S_d]
+    c = torch.sum(seg * bk, dim=-1)                    # [B, M, Nsym]
+    e_s = torch.sum(seg.real ** 2 + seg.imag ** 2, dim=-1)
+    e_t = torch.sum(torch.abs(bank[0]) ** 2, dim=-1)   # [Nsym]
+    e_floor = 1e-4 * torch.mean(e_s, dim=(-2, -1), keepdim=True) + 1e-20
+    term = torch.abs(c) / torch.sqrt(torch.clamp(e_s * e_t, min=1e-30))
+    return torch.sum(torch.where(e_s > e_floor, term, 0.0), dim=-1)
+
+
+def pilot_cand_score(bb_dec: torch.Tensor, idx0: torch.Tensor,
+                     fidx: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """Pilot-lattice scores [B, M] of candidate starts idx0 [B, M] (into
+    bb_dec [B, n_dec]) at template rows fidx [B, M] of bank [F, Nsym, S_d]
+    (see pilot_cand_score_ref). CUDA: one kernel, one block per row."""
+    if bb_dec.device.type == "cpu":
+        return pilot_cand_score_ref(bb_dec, idx0, fidx, bank)
+    _require(bb_dec.device.type == "cuda",
+             f"unsupported device {bb_dec.device}")
+    b, n_dec = bb_dec.shape
+    m = idx0.shape[1]
+    f_n, nsym, s_d = bank.shape
+    _require(bb_dec.dtype == torch.complex64 and bank.dtype == torch.complex64,
+             "pilot_cand_score: complex64 baseband and bank required")
+    _require(all(t.device == bb_dec.device for t in (idx0, fidx, bank)),
+             "pilot_cand_score: operands on different devices")
+    _require(tuple(idx0.shape) == tuple(fidx.shape) == (b, m),
+             f"pilot_cand_score: idx0 {tuple(idx0.shape)} and fidx "
+             f"{tuple(fidx.shape)} must both be ({b}, M)")
+    idx0, fidx = (t.contiguous() for t in
+                  _clip_candidates(n_dec, idx0, fidx, bank))
+    bb_dec = bb_dec.contiguous()
+    bank_c = torch.conj_physical(bank).contiguous()
+    e_t = torch.sum(torch.abs(bank[0]) ** 2, dim=-1).contiguous()
+    out = torch.empty((b, m), dtype=torch.float32, device=bb_dec.device)
+    lib = native.load_library()
+    err = lib.pcs_launch(bb_dec.data_ptr(), idx0.data_ptr(), fidx.data_ptr(),
+                         bank_c.data_ptr(), e_t.data_ptr(), out.data_ptr(),
+                         b, n_dec, m, nsym, s_d, _stream(bb_dec))
+    _check(err, "pilot_cand_score")
+    LAUNCHES["pilot_cand_score"] += 1
     return out

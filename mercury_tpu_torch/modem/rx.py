@@ -2,12 +2,16 @@
 the OFDM path of `mercury_tpu.modem.rx.RxChain`).
 
 Stages, in order: mixer + strided time-sync FIR (CUDA kernel
-`mix_fir_decimate`), Schmidl-Cox top-K candidates, matched-filter refinement
-over (candidate x CFO alias) and, on the deep-sync modes, a whole-buffer
-known-preamble scan (both CUDA kernel `deep_mf_score`), frame extraction
-through the data FIR (`mix_fir_decimate` with per-row starts), Moose CFO and
-the pilot-variance pick among CFO hypotheses, FFT demod, ramp-aware LS
-channel estimate, max-log demap, layered LDPC and the CRC16 check.
+`mix_fir_decimate`), Schmidl-Cox top-K candidates, then the delay and coarse
+CFO: matched-filter refinement over (candidate x CFO alias) and, on the
+deep-sync modes, a noncoherent whole-buffer known-preamble scan (both CUDA
+kernel `deep_mf_score`); or, on CONFIG_0, the coherent whole-buffer scan
+(`deep_mf_max`) whose top candidates the pilot lattice arbitrates
+(`pilot_cand_score`). Then frame extraction through the data FIR
+(`mix_fir_decimate` with per-row starts), Moose CFO and the pilot-variance
+pick among CFO hypotheses, FFT demod, ramp-aware LS channel estimate, max-log
+demap, layered LDPC and the CRC16 check; on CONFIG_0 a batch with a failed
+row is decoded once more at the runner-up candidate.
 
 JAX's jit/vmap/lax control flow becomes eager code over a written-out batch
 axis. Float32 matmuls run at full precision (no TF32) inside `receive`.
@@ -16,6 +20,7 @@ axis. Float32 matmuls run at full precision (no TF32) inside `receive`.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -34,6 +39,8 @@ from mercury_tpu_torch.modem import psk, sync
 
 PILOT_BOOST = 1.33
 DEEP_GRID_HZ = 30.0      # whole-buffer scan CFO grid ("pruned" profile)
+DEEP_COH_GRID_HZ = 4.0   # coherent whole-buffer scan CFO grid (CONFIG_0)
+DEEP_PIL_TOPM = 32       # coherent-scan nominees the pilot lattice re-scores
 
 
 @dataclass
@@ -49,10 +56,12 @@ class RxResult:
     mean_h: torch.Tensor        # [B] float32 mean |H| at the pilots
 
 
-def host_constants(geom: ModeGeometry) -> tuple[dict[str, np.ndarray], dict]:
+def host_constants(geom: ModeGeometry, deep_sync: bool
+                   ) -> tuple[dict[str, np.ndarray], dict]:
     """The receive constants of an OFDM LS-estimator mode, built on the host
     exactly as the JAX RxChain builds them: (arrays by buffer name, scalars
-    of the ramp-aware LS estimator)."""
+    of the ramp-aware LS estimator). The pilot-only symbol waveforms exist
+    with deep sync only, as in the JAX chain."""
     g = geom
     pilot_cells = np.asarray(g.pilot_cells)
     arrays = {
@@ -137,6 +146,19 @@ def host_constants(geom: ModeGeometry) -> tuple[dict[str, np.ndarray], dict]:
     tmpl = hostdsp.linear_interp_x4(td, g.interp)
     arrays["_mf_templates"] = np.asarray(
         tmpl.reshape(g.preamble_nsymb, g.nofdm * g.interp), np.complex64)
+    if deep_sync:
+        # per-symbol pilot-only waveforms for the pilot-lattice arbitration:
+        # the frame grid with data cells zeroed, pre-equalized like TX
+        flat_p = np.zeros(g.nsymb * g.nc, np.complex128)
+        flat_p[pilot_cells] = np.asarray(g.pilot_seq)
+        grid_p = flat_p.reshape(g.nsymb, g.nc)
+        if g.pre_eq is not None:
+            grid_p = grid_p * np.asarray(g.pre_eq)[None, :]
+        td_p = np.concatenate([hostdsp.symbol_mod(grid_p[s], g.nfft, g.ngi, 1)
+                               for s in range(g.nsymb)])
+        tp = hostdsp.linear_interp_x4(td_p, g.interp)
+        arrays["_pil_templates"] = np.asarray(
+            tp.reshape(g.nsymb, g.nofdm * g.interp), np.complex64)
     a, c0 = crc_mod.crc_affine(g.frame_bytes + 2)
     arrays["_crc_a"] = a.astype(np.float32)
     arrays["_crc_c0"] = c0
@@ -173,8 +195,10 @@ class RxChain(nn.Module):
     profile: the 93.75 Hz coarse-CFO alias is arbitrated by a 3-way
     matched-filter vote and 4 CFO hypotheses (cfo_range="narrow" has no
     caller and is not ported). deep_sync (auto: CONFIG_0-4) adds the
-    noncoherent whole-buffer known-preamble scan. Options and modes outside
-    this port raise NotImplementedError naming their ROADMAP item.
+    whole-buffer known-preamble scan: noncoherent, or with deep_coherent
+    (auto: CONFIG_0) the coherent scan, pilot-lattice arbitration and the
+    CRC-gated rescue decode. Options and modes outside this port raise
+    NotImplementedError naming their ROADMAP item.
     """
 
     def __init__(self, geom: ModeGeometry, device=None, ctrl: bool = False,
@@ -190,8 +214,6 @@ class RxChain(nn.Module):
             deep_sync = g.spec.config <= 4
         if deep_coherent is None:
             deep_coherent = g.spec.config == 0
-        if deep_sync and deep_coherent:
-            raise _roadmap(8, "coherent deep acquisition (CONFIG_0 default)")
         if deep_profile != "pruned":
             raise _roadmap(8, f"deep_profile={deep_profile!r}")
         if g.estimator == ZERO_FORCE:
@@ -209,7 +231,8 @@ class RxChain(nn.Module):
             raise _roadmap(9, "the decision-directed MER SNR of QAM modes")
         self.geom = g
         self.deep_sync = bool(deep_sync)
-        arrays, scalars = host_constants(g)
+        self.deep_coherent = self.deep_sync and bool(deep_coherent)
+        arrays, scalars = host_constants(g, self.deep_sync)
         for name, t in rx_state_from_numpy(arrays).items():
             self.register_buffer(name, t)
         self.ramp_dbin = scalars["ramp_dbin"]
@@ -343,20 +366,75 @@ class RxChain(nn.Module):
         return payload, crc_ok, iters
 
     # ------------------------------------------------------------------
-    def _rotated_bank(self, tmpl_d: torch.Tensor, freqs, mf_d: int):
-        """[F, Lp, S] bank of decimated templates rotated by e^{-j w_f t}
-        (CFO hypotheses on the template side), float64 phase then complex64,
-        as the JAX chain builds it on the host."""
-        t = torch.arange(tmpl_d.shape[-1], dtype=torch.float64,
-                         device=tmpl_d.device) * mf_d
-        f = torch.as_tensor(np.asarray(freqs, np.float64), device=tmpl_d.device)
-        rot = _cis((-(2 * np.pi / self.geom.fs) * f)[:, None] * t[None])
-        return (tmpl_d.to(torch.complex128)[None] * rot[:, None]).to(
-            torch.complex64)
+    def _rotated_bank(self, tmpl_d: torch.Tensor, freqs, mf_d: int,
+                      symbol_step: int = 0):
+        """[F, Lp, S] bank of decimated templates [Lp, S] rotated by
+        e^{-j w_f t} (CFO hypotheses on the template side), float64 phase
+        then complex64, as the JAX chain builds it on the host. t is the
+        sample's time within its symbol (symbol_step 0), or its absolute
+        time t = k*mf_d + l*symbol_step, which keeps the phase running from
+        one symbol to the next for a coherent sum over symbols."""
+        dev = tmpl_d.device
+        lp, s = tmpl_d.shape
+        t = (torch.arange(s, dtype=torch.float64, device=dev)[None] * mf_d
+             + torch.arange(lp, dtype=torch.float64, device=dev)[:, None]
+             * symbol_step)
+        f = torch.as_tensor(np.asarray(freqs, np.float64), device=dev)
+        rot = _cis((-(2 * np.pi / self.geom.fs) * f)[:, None, None] * t[None])
+        return (tmpl_d.to(torch.complex128)[None] * rot).to(torch.complex64)
+
+    def _coherent_banks(self, mf_d: int):
+        """CONFIG_0's CFO grid [F] (+-120 Hz in 4 Hz steps) and its two
+        banks at mf_d: the preamble as one symbol [F, 1, Lp*S_d], rotated in
+        absolute time, and the pilot-only symbols [F, Nsymb, S_d], rotated
+        in local symbol time."""
+        tmpl_d = self._mf_templates[:, ::mf_d]
+        lp, s_d = tmpl_d.shape
+        n_h = int(round(120.0 / DEEP_COH_GRID_HZ))
+        grid = np.arange(-n_h, n_h + 1) * DEEP_COH_GRID_HZ
+        coh = self._rotated_bank(tmpl_d, grid, mf_d,
+                                 self._mf_templates.shape[1])
+        pil = self._rotated_bank(self._pil_templates[:, ::mf_d], grid, mf_d)
+        return grid, coh.reshape(len(grid), 1, lp * s_d), pil
+
+    def _coherent_acquire(self, bb_ts: torch.Tensor, mf_d: int, ts_dec: int):
+        """CONFIG_0's coherent whole-buffer acquisition (mercury_tpu rx.py
+        :1342-1422): the full preamble scored coherently at every lag for
+        each row of a 4 Hz CFO grid, max-combined over the grid; the top
+        pooled peaks re-scored against the pilot lattice. -> (delay [B],
+        coarse CFO [B], runner-up delay [B] outside the winner's GI plateau,
+        its CFO [B], whether a row has one [B])."""
+        g = self.geom
+        mf_s = mf_d // ts_dec
+        lp, s_tmpl = self._mf_templates.shape
+        span = lp * (s_tmpl // mf_d)
+        win_g = (bb_ts.shape[-1] // mf_s - span) // 2
+        seg_g = bb_ts[:, : (2 * win_g + span) * mf_s: mf_s]
+        grid, bank_coh, bank_pil = self._coherent_banks(mf_d)
+        smax, sarg = sync.coherent_scan_max(seg_g, bank_coh, win_g)
+        d_lag, _ = sync.topk_pooled(smax, 0, DEEP_PIL_TOPM, 8)   # [B, M]
+        f_top = torch.gather(sarg, 1, d_lag)
+        d_top = d_lag * mf_d                        # interp-rate starts
+        score_p = sync.pilot_rescore(bb_ts, d_top, f_top, bank_pil, mf_s,
+                                     ts_dec, lp * s_tmpl)          # [B, M]
+        grid_t = torch.as_tensor(grid, dtype=torch.float32,
+                                 device=bb_ts.device)
+
+        def pick(score):
+            i = torch.argmax(score, dim=-1, keepdim=True)
+            return (torch.gather(d_top, 1, i)[:, 0],
+                    grid_t[torch.gather(f_top, 1, i)[:, 0]])
+
+        delay, coarse_cfo = pick(score_p)
+        far = torch.abs(d_top - delay[:, None]) > g.ngi * g.interp
+        delay2, cfo2 = pick(torch.where(far, score_p, -math.inf))
+        return delay, coarse_cfo, delay2, cfo2, torch.any(far, dim=-1)
 
     def _acquire(self, pb: torch.Tensor):
         """Coarse sync + matched-filter arbitration -> (delay [B],
-        coarse CFO [B], sync metric [B])."""
+        coarse CFO [B], sync metric [B], rescue). rescue is None, or on the
+        coherent path (delay, coarse CFO, eligible) [B] of the runner-up
+        candidate."""
         g = self.geom
         b, n = pb.shape
         dev = pb.device
@@ -383,18 +461,39 @@ class RxChain(nn.Module):
             suppress = torch.abs(pos[None] - idx_k[:, None]) < sym_cand
             met_work = torch.where(suppress, -1.0, met_work)
 
-        # 2) matched-filter arbitration over (candidate x CFO alias) on the
-        # TS baseband decimated to mf_d interp samples
-        lp, s_tmpl = self._mf_templates.shape
+        # 2) delay and coarse CFO on the TS baseband decimated to mf_d interp
+        # samples
+        s_tmpl = self._mf_templates.shape[1]
         mf_d = 2 * ts_dec if s_tmpl % (2 * ts_dec) == 0 else ts_dec
+        # sample a little early inside the guard interval, and keep the
+        # frame inside the buffer
+        max_delay = n - g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
+        rescue = None
+        if self.deep_coherent:
+            delay, coarse_cfo, delay2, cfo2, have2 = self._coherent_acquire(
+                bb_ts, mf_d, ts_dec)
+            rescue = (torch.clamp(delay2 - 8, 0, max_delay), cfo2, have2)
+        else:
+            delay, coarse_cfo = self._refine_arbitrate(bb_ts, cands, cfo_c,
+                                                       mf_d, ts_dec)
+        delay = torch.clamp(delay - 8, 0, max_delay)
+        return delay, coarse_cfo, metrics[0], rescue
+
+    def _refine_arbitrate(self, bb_ts: torch.Tensor, cands, cfo_c,
+                          mf_d: int, ts_dec: int):
+        """Matched-filter arbitration over (SC candidate x CFO alias) and, with
+        deep sync, the noncoherent whole-buffer scan -> (delay [B], coarse
+        CFO [B])."""
+        g = self.geom
+        b, n_ts = bb_ts.shape
+        dev = bb_ts.device
+        tmpl_d = self._mf_templates[:, ::mf_d]
+        lp, s_d = tmpl_d.shape
         mf_s = mf_d // ts_dec
         window = 2 * g.nofdm * g.interp
         win_d = window // mf_d
-        s_d = s_tmpl // mf_d
         seg_d_len = 2 * win_d + lp * s_d
-        n_ts = bb_ts.shape[-1]
         max_start = (n_ts * ts_dec - seg_d_len * mf_d) // mf_d * mf_d
-        tmpl_d = self._mf_templates[:, ::mf_d]
         alias = g.fs / ((g.nfft // 2) * g.interp)
         alias_offsets = (0.0, alias, -alias)
         tmpl_bank = self._rotated_bank(tmpl_d, alias_offsets, mf_d)
@@ -440,11 +539,7 @@ class RxChain(nn.Module):
         pick = torch.argmax(scores, dim=0)[None]
         delay = torch.gather(delays, 0, pick)[0]
         coarse_cfo = torch.gather(cfos, 0, pick)[0]
-        # sample a little early inside the guard interval, and keep the
-        # frame inside the buffer
-        max_delay = n - g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
-        delay = torch.clamp(delay - 8, 0, max_delay)
-        return delay, coarse_cfo, metrics[0]
+        return delay, coarse_cfo
 
     def _decode_from(self, pb: torch.Tensor, delay: torch.Tensor,
                      coarse_cfo: torch.Tensor, metric: torch.Tensor):
@@ -496,9 +591,26 @@ class RxChain(nn.Module):
     @torch.no_grad()
     def receive(self, pb_buffer) -> RxResult:
         """Full RX: sync + CFO + decode. pb_buffer: [B, buffer_samples]
-        (any real dtype; moved to the chain's device as float32)."""
+        (any real dtype; moved to the chain's device as float32).
+
+        On the coherent deep-acquisition path (CONFIG_0), when a row fails
+        its CRC the whole batch is decoded once more at the runner-up
+        candidate, and a row takes that result where it passes and its own
+        did not. Deciding whether to run that decode reads crc_ok on the host
+        (one device sync per call on that path)."""
         pb = torch.as_tensor(pb_buffer).to(device=self.device,
                                            dtype=torch.float32).contiguous()
         with _full_fp32_matmul():
-            delay, coarse_cfo, metric = self._acquire(pb)
-            return self._decode_from(pb, delay, coarse_cfo, metric)
+            delay, coarse_cfo, metric, rescue = self._acquire(pb)
+            out = self._decode_from(pb, delay, coarse_cfo, metric)
+            if rescue is None or bool(out.crc_ok.all()):
+                return out
+            delay2, cfo2, have2 = rescue
+            out2 = self._decode_from(pb, delay2, cfo2, metric)
+        use2 = ~out.crc_ok & out2.crc_ok & have2
+        merged = {}
+        for f in dataclasses.fields(RxResult):
+            a1, a2 = getattr(out, f.name), getattr(out2, f.name)
+            merged[f.name] = torch.where(
+                use2.reshape((-1,) + (1,) * (a1.ndim - 1)), a2, a1)
+        return RxResult(**merged)

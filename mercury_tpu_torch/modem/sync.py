@@ -1,9 +1,12 @@
 """Synchronization: Schmidl-Cox time sync, known-preamble matched filter,
-Moose fine CFO (PyTorch port of the OFDM parts of `mercury_tpu.modem.sync`).
+the coherent whole-buffer scan and pilot-lattice arbitration of the deep
+acquisition, Moose fine CFO (PyTorch port of the OFDM parts of
+`mercury_tpu.modem.sync`).
 
 The Schmidl-Cox window sums are prefix-sum differences (cumsum, then
 difference, as the JAX package computes them off the TPU); the
-matched-filter scores go through `dsp.kernels.deep_mf_score`.
+matched-filter scores go through `dsp.kernels.deep_mf_score` and
+`deep_mf_max`, the pilot scores through `dsp.kernels.pilot_cand_score`.
 """
 
 from __future__ import annotations
@@ -83,6 +86,55 @@ def schmidl_cox_metric(bb: torch.Tensor, geom: ModeGeometry, decim: int = 1,
     lag_s = (geom.nfft // 2) * geom.interp / geom.fs
     cfo = torch.atan2(half_c.imag, half_c.real) / (2 * math.pi * lag_s)
     return metric, cfo
+
+
+def topk_pooled(score: torch.Tensor, start, topn: int, pool_w: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-N peaks of score [..., n_cand] with plateau suppression: max-pool
+    into pool_w-wide windows first so the N nominees are distinct peaks.
+    Returns (delay [..., N] = start + offset, score [..., N]). Ties keep the
+    lower index first, as lax.top_k does (a stable descending sort: gated
+    silent windows score exactly 0)."""
+    n_cand = score.shape[-1]
+    n_pool = -(-n_cand // pool_w)
+    sp = torch.nn.functional.pad(score, (0, n_pool * pool_w - n_cand),
+                                 value=-math.inf)
+    sp = sp.reshape(*score.shape[:-1], n_pool, pool_w)
+    pooled = torch.amax(sp, dim=-1)
+    inner = torch.argmax(sp, dim=-1)
+    k = min(topn, n_pool)
+    top_s, top_i = torch.sort(pooled, dim=-1, descending=True, stable=True)
+    top_s, top_i = top_s[..., :k], top_i[..., :k]
+    off = top_i * pool_w + torch.gather(inner, -1, top_i)
+    if isinstance(start, torch.Tensor) and start.ndim:
+        start = start.reshape(start.shape + (1,) * (off.ndim - start.ndim))
+    return off + start, top_s
+
+
+def coherent_scan_max(seg: torch.Tensor, bank: torch.Tensor, window: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(smax [B, n_cand], sarg [B, n_cand] int64): bank_scores of bank
+    [A, Lp, S] max-combined over the hypothesis axis, first a on ties (the
+    reduction runs inside the `deep_mf_max` kernel on the card)."""
+    return kernels.deep_mf_max(seg, bank, window)
+
+
+def pilot_rescore(bb_ts: torch.Tensor, cand_delay: torch.Tensor,
+                  cand_fidx: torch.Tensor, bank: torch.Tensor, mf_s: int,
+                  ts_dec: int, pre_span: int) -> torch.Tensor:
+    """Pilot-lattice scores [B, M] of candidate frame starts: bb_ts [B, n_ts]
+    base-rate TS baseband, cand_delay [B, M] interp-rate frame starts,
+    cand_fidx [B, M] CFO-grid rows of bank [F, Nsymb, S_d] (pilot-only
+    symbol templates at mf_d = mf_s*ts_dec rate, rotated in local symbol
+    time), pre_span the preamble length in interp samples. Each symbol is
+    correlated coherently, magnitudes summed over symbols; the silence floor
+    is the XLA path's (mean energy of the segments scored)."""
+    _, nsym, s_d = bank.shape
+    bb_dec = bb_ts[:, ::mf_s]
+    idx0 = torch.clamp(torch.div(cand_delay + pre_span, ts_dec * mf_s,
+                                 rounding_mode="floor"),
+                       0, max(bb_dec.shape[-1] - nsym * s_d, 0))
+    return kernels.pilot_cand_score(bb_dec, idx0, cand_fidx, bank)
 
 
 def bank_scores(seg: torch.Tensor, bank: torch.Tensor,

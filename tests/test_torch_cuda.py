@@ -4,7 +4,10 @@
 This file imports no JAX, so it runs on a machine with the card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 Tolerances as in tests/test_torch_kernels.py: FIR atol 1e-5 / rtol 1e-4,
-matched-filter scores rtol/atol 1e-3 with equal argmax lags."""
+matched-filter scores and their max over the bank rtol/atol 1e-3 with equal
+argmax lags (and equal argmax hypotheses where the top two differ by more
+than 1e-3), pilot scores rtol 1e-4 / atol 1e-5 (float32 sums in another
+order)."""
 
 import numpy as np
 import pytest
@@ -78,3 +81,60 @@ def test_deep_mf_score_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(got.argmax(-1), want.argmax(-1))
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
     assert int(got[2, 1].argmax()) == 150
+
+
+@pytest.mark.cuda
+def test_deep_mf_max_kernel_matches_plain(cuda_device):
+    # 11 hypotheses: more than one chunk of the plain version's running max
+    seg, bank = _deep_case(21, 11, 2, 64, 300, 5, (2, 9, 123), silence=3)
+    seg[4, seg.shape[1] // 2:] = 0.0          # half-silent row
+    seg_t = torch.as_tensor(seg, device=cuda_device)
+    bank_t = torch.as_tensor(bank, device=cuda_device)
+    before = kernels.LAUNCHES["deep_mf_max"]
+    smax, sarg = kernels.deep_mf_max(seg_t, bank_t, 300)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["deep_mf_max"] == before + 1
+    ref_max, ref_arg = kernels.deep_mf_max_ref(seg_t, bank_t, 300)
+    assert sarg.dtype == ref_arg.dtype == torch.int64
+    torch.testing.assert_close(smax, ref_max, rtol=1e-3, atol=1e-3)
+    top2 = kernels.deep_mf_score_ref(seg_t, bank_t, 300).topk(2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > 1e-3
+    assert clear.float().mean() > 0.5
+    assert torch.equal(sarg[clear], ref_arg[clear])
+    assert int(smax[2].argmax()) == 123 and int(sarg[2, 123]) == 9
+
+
+def _pilot_case(device):
+    """Rows: stationary noise, half-silent (bursty), silent, and one 42 dB
+    quieter in its second half; candidates clipped at both ends of the row
+    and template rows clipped to the bank."""
+    rng = np.random.default_rng(8)
+    b, m, n_dec, f_n, nsym, s_d = 4, 12, 3000, 7, 6, 96
+    bb = (rng.standard_normal((b, n_dec))
+          + 1j * rng.standard_normal((b, n_dec))).astype(np.complex64)
+    bb[1, n_dec // 2:] = 0.0
+    bb[2] = 0.0
+    bb[3, n_dec // 2:] *= np.float32(np.sqrt(6.6e-5))
+    bank = (rng.standard_normal((f_n, nsym, s_d))
+            + 1j * rng.standard_normal((f_n, nsym, s_d))).astype(np.complex64)
+    idx0 = rng.integers(0, n_dec - nsym * s_d, (b, m))
+    idx0[:, 0] = -50
+    idx0[:, 1] = n_dec
+    idx0[1, 2:6] = n_dec // 2 - np.arange(4) * 150     # across the burst edge
+    fidx = rng.integers(0, f_n, (b, m))
+    fidx[:, 3] = f_n + 2
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in (bb, idx0, fidx, bank))
+
+
+@pytest.mark.cuda
+def test_pilot_cand_score_kernel_matches_plain(cuda_device):
+    bb, idx0, fidx, bank = _pilot_case(cuda_device)
+    before = kernels.LAUNCHES["pilot_cand_score"]
+    got = kernels.pilot_cand_score(bb, idx0, fidx, bank)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pilot_cand_score"] == before + 1
+    want = kernels.pilot_cand_score_ref(bb, idx0, fidx, bank)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert (got[2] == 0).all()                     # silent row
+    assert (got[0] > 0).all()

@@ -1,5 +1,7 @@
-"""The two CUDA kernels' plain versions against the Pallas kernels they
-replace (interpret mode on the CPU). The kernels themselves are held against
+"""The plain versions of the CUDA kernels for the front-end FIR and the
+matched-filter scores against the Pallas kernels they replace (interpret
+mode on the CPU; deep_mf_max and pilot_cand_score are held to theirs in
+tests/test_torch_coherent.py and tests/test_torch_pilot.py). The kernels themselves are held against
 their plain versions on the card in tests/test_torch_cuda.py.
 
 Tolerances: the front-end FIR atol 1e-5 / rtol 1e-4 (float32 sums in a
@@ -115,10 +117,28 @@ def test_cpu_tensors_take_the_plain_versions(geom):
     osc = torch.as_tensor(_osc(geom, 512))
     taps = torch.as_tensor(geom.fir_rx_ts.astype(np.float32))
     kernels.mix_fir_decimate(pb, osc, taps, 4)
-    assert kernels.LAUNCHES == {"mix_fir_decimate": 0, "deep_mf_score": 0}
+    smax, sarg = kernels.deep_mf_max(torch.as_tensor(seg),
+                                     torch.as_tensor(bank), 20)
+    torch.testing.assert_close(smax, s.amax(1), rtol=0, atol=0)
+    torch.testing.assert_close(sarg, s.argmax(1), rtol=0, atol=0)
+    bb = torch.as_tensor(seg)
+    idx0 = torch.tensor([[0, 3], [9, 1]])
+    pil = torch.as_tensor(bank)
+    torch.testing.assert_close(
+        kernels.pilot_cand_score(bb, idx0, idx0 % 2, pil),
+        kernels.pilot_cand_score_ref(bb, idx0, idx0 % 2, pil), rtol=0, atol=0)
+    assert set(kernels.LAUNCHES) == {"mix_fir_decimate", "deep_mf_score",
+                                     "deep_mf_max", "pilot_cand_score"}
+    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.mix_fir_decimate(pb.to("meta"), osc.to("meta"),
                                  taps.to("meta"), 4)
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.deep_mf_score(torch.as_tensor(seg).to("meta"),
                               torch.as_tensor(bank).to("meta"), 20)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.deep_mf_max(torch.as_tensor(seg).to("meta"),
+                            torch.as_tensor(bank).to("meta"), 20)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.pilot_cand_score(bb.to("meta"), idx0.to("meta"),
+                                 idx0.to("meta"), pil.to("meta"))

@@ -20,7 +20,7 @@ from mercury_tpu.fec.tables import load_code
 from mercury_tpu_torch.fec import ldpc
 
 
-@pytest.mark.parametrize("cfg,rate", [(3, 4), (9, 8)])
+@pytest.mark.parametrize("cfg,rate", [(0, 1), (3, 4), (9, 8)])
 def test_encode_bit_exact(golden, cfg, rate):
     code = load_code(rate)
     gen = torch.as_tensor(code.gen.astype(np.float32))
@@ -29,14 +29,14 @@ def test_encode_bit_exact(golden, cfg, rate):
     assert (enc == golden(f"cfg{cfg}_ldpc_enc")).all()
 
 
-@pytest.mark.parametrize("rate", [4, 8])
+@pytest.mark.parametrize("rate", [1, 4, 8])
 def test_layer_plan_matches_reference(rate):
     np.testing.assert_array_equal(ldpc.layer_plan(rate),
                                   jldpc._layer_plan(rate, None).c_idx)
 
 
 @pytest.mark.parametrize("rate,sigma,mixed", [
-    (4, 1.0, False), (4, 1.35, True), (8, 0.8, False), (8, 0.85, True)])
+    (1, 2.0, False), (1, 2.5, True), (4, 1.0, False), (4, 1.35, True), (8, 0.8, False), (8, 0.85, True)])
 def test_layered_decode_matches_decode_mm(rate, sigma, mixed):
     code = load_code(rate)
     rng = np.random.default_rng(rate * 100 + int(sigma * 100))

@@ -36,15 +36,24 @@ def test_imports_without_jax():
 
 def test_build_command_targets_sm90a_and_reads_only_csrc(tmp_path):
     out = tmp_path / "lib.so"
-    cmd = native.build_command(out)
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    inputs = [pathlib.Path(a) for a in cmd if a.endswith((".cu", ".cuh", ".cpp"))]
+    compiles, link = native.build_commands(out, tmp_path)
+    for cmd in (*compiles, link):
+        assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    # one nvcc per source, each writing its object into the build directory
+    inputs, objs = [], []
+    for cmd in compiles:
+        srcs = [pathlib.Path(a) for a in cmd
+                if a.endswith((".cu", ".cuh", ".cpp"))]
+        assert len(srcs) == 1
+        inputs += srcs
+        objs.append(cmd[cmd.index("-o") + 1])
+        assert pathlib.Path(objs[-1]).parent == tmp_path
     csrc = (REPO / "mercury_tpu_torch" / "csrc").resolve()
     assert sorted(p.name for p in inputs) == sorted(
         p.name for p in csrc.glob("*.cu"))
     assert all(p.resolve().parent == csrc for p in inputs)
-    assert cmd[cmd.index("-o") + 1] == str(out)
+    assert link[link.index("-o") + 1] == str(out)
+    assert link[-len(objs):] == objs
     # the library name follows the sources' hash, under build/
     lib = native.library_path()
     assert lib.parent == REPO / "build" / "mercury_tpu_torch"
