@@ -57,6 +57,17 @@ KERNELS = {
 PATH_KERNELS = {3: ("mix_fir_decimate", "deep_mf_score"),
                 9: ("mix_fir_decimate", "deep_mf_score"),
                 0: ("mix_fir_decimate", "deep_mf_max", "pilot_cand_score")}
+# the matched-filter kernels' tensor-core arithmetic
+MF_FORM = ("TF32 one pass: wgmma m64nNk8 tf32 x tf32 -> f32 (A from "
+           "registers, B from shared memory), operands rounded with cvt.rna")
+
+
+def mf_tflops(rows: int, bank_shape, n_cand: int, ms: float) -> float:
+    """Effective TFLOP/s of a matched-filter call: 8 flops per complex
+    multiply-add of the direct correlation (rows x A x lags x Lp*S), the
+    GEMM's padding not counted."""
+    a, lp, s = bank_shape
+    return 8.0 * rows * a * n_cand * lp * s / (ms * 1e-3) / 1e12
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -159,7 +170,9 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator) -> dict:
             out["refine_ms"], out["refine_plain_ms"] = k_ms, p_ms
         print(f"deep_mf_score {label} [{rows},{seg_len}]x{list(bank.shape)} "
               f"w={window}: max abs err {err:.3e}, argmax equal on {rows} "
-              f"planted rows; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+              f"planted rows; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+              f"{mf_tflops(rows, bank.shape, 2 * window + 1, k_ms):.2f} "
+              f"TFLOP/s effective; {MF_FORM}")
     return out
 
 
@@ -200,7 +213,9 @@ def check_deep_mf_max(rx: RxChain, gen: torch.Generator) -> dict:
     print(f"deep_mf_max [{BATCH},{seg_len}]x{list(bank.shape)} w={window}: "
           f"max abs err {err:.3e}; sarg equal on {BATCH} planted lags and "
           f"{int(clear.sum())}/{clear.numel()} lags with a clear margin; "
-          f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms")
+          f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms; "
+          f"{mf_tflops(BATCH, bank.shape, 2 * window + 1, out['ms']):.2f} "
+          f"TFLOP/s effective; {MF_FORM}")
     return out
 
 

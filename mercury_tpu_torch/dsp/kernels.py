@@ -153,10 +153,62 @@ def deep_mf_score_ref(seg: torch.Tensor, bank: torch.Tensor, window: int,
     return score
 
 
+def _dmf_pack_pairs(bank: torch.Tensor) -> torch.Tensor:
+    """dmf_pack_bank's matrix as [Lp, S, N, 2]: element [l, k, n, r] is row
+    2k + r, column n. Columns 2a and 2a+1 of row pair k are the complex
+    pairs t and i*t: (tr, ti) and (-ti, tr)."""
+    a, lp, s = bank.shape
+    t = bank / torch.linalg.vector_norm(bank, dim=-1, keepdim=True)
+    t = t.permute(1, 2, 0)                                   # [Lp, S, A]
+    pairs = torch.view_as_real(torch.stack((t, t * 1j), dim=-1))
+    n = -(-2 * a // 8) * 8
+    return torch.nn.functional.pad(pairs.reshape(lp, s, 2 * a, 2),
+                                   (0, 0, 0, n - 2 * a))
+
+
+def dmf_pack_bank(bank: torch.Tensor) -> torch.Tensor:
+    """The matched-filter GEMM's B operand: bank [A, Lp, S] complex ->
+    real [Lp, 2S, N] float32, N = 2A rounded up to a multiple of 8, the
+    padded columns zero.
+
+    Templates are normalized per (a, l) and conjugated. Row 2k takes the
+    real and row 2k+1 the imaginary part of window sample k; column 2a
+    gives Re and column 2a+1 Im of the correlation with template a:
+    B[2k, 2a] = tr, B[2k+1, 2a] = ti, B[2k, 2a+1] = -ti, B[2k+1, 2a+1] = tr.
+    So with the Toeplitz window X[d, 2k + r] = (Re, Im)[r] of
+    seg[d + l*S + k], (X @ B[l])[d, 2a : 2a+2] is
+    sum_k seg[d + l*S + k] * conj(t[a, l, k]) as (Re, Im)."""
+    pairs = _dmf_pack_pairs(bank)
+    lp, s, n, _ = pairs.shape
+    return pairs.transpose(2, 3).reshape(lp, 2 * s, n)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: what cvt.rna.tf32.f32 gives for finite values."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _dmf_kernel_bank(bank: torch.Tensor) -> torch.Tensor:
+    """The bank as the kernels read it: dmf_pack_bank's [Lp, 2S, N] in
+    wgmma's K-major 8 x 4 core matrices, [Lp, ceil(S/4), N/8, 2, 8, 4], in
+    TF32. Element [l, k4, G, h, row, j] is row 2(4*k4 + j) + h, column
+    8G + row (zero past S): one k8 step of 8 columns is two 128-byte core
+    matrices, the real rows of four samples and then their imaginary rows."""
+    pairs = _dmf_pack_pairs(bank)                            # [Lp, S, N, 2]
+    lp, s, n, _ = pairs.shape
+    s4 = -(-s // 4)
+    if s4 * 4 > s:
+        pairs = torch.nn.functional.pad(pairs, (0, 0, 0, 0, 0, 4 * s4 - s))
+    return _tf32(pairs.reshape(lp, s4, 4, n // 8, 8, 2)
+                 .permute(0, 1, 3, 5, 4, 2))
+
+
 def _dmf_operands(seg: torch.Tensor, bank: torch.Tensor, window: int,
                   name: str):
     """Checks and kernel operands shared by deep_mf_score and deep_mf_max:
-    (seg, templates normalized per (a, l), energy prefix sums, floor)."""
+    (seg, _dmf_kernel_bank, energy prefix sums, floor)."""
     _require(seg.device.type == "cuda", f"unsupported device {seg.device}")
     _, seg_len = seg.shape
     _, lp, s = bank.shape
@@ -166,12 +218,11 @@ def _dmf_operands(seg: torch.Tensor, bank: torch.Tensor, window: int,
     _require(seg_len >= 2 * window + lp * s,
              f"{name}: segment {seg_len} shorter than 2*{window} + {lp}*{s}")
     seg = seg.contiguous()
-    # per-(a, l) template normalization and the energy prefix sums stay in
-    # torch, as the JAX wrapper keeps them outside its pallas_call
-    t_norm = torch.sqrt(torch.sum(torch.abs(bank) ** 2, dim=-1, keepdim=True))
-    tmpl = (bank / t_norm).contiguous()
+    # the packed, normalized bank and the energy prefix sums stay in torch,
+    # as the JAX wrapper keeps t_norm outside its pallas_call
+    tmpl = _dmf_kernel_bank(bank)
     ce, e_floor = _energy_terms(seg, s)
-    return seg, tmpl, ce.contiguous(), e_floor[:, 0].contiguous()
+    return seg, tmpl, ce, e_floor.reshape(-1)
 
 
 def deep_mf_score(seg: torch.Tensor, bank: torch.Tensor, window: int,
@@ -179,8 +230,9 @@ def deep_mf_score(seg: torch.Tensor, bank: torch.Tensor, window: int,
     """Normalized matched-filter scores of bank [A, Lp, S] against seg
     [B, L] at lags 0..2*window -> [B, A, 2*window+1] float32 (before /Lp).
 
-    CUDA: direct time-domain correlation in one kernel; `nfft` is accepted
-    for the JAX signature and not needed. Requires L >= 2*window + Lp*S."""
+    CUDA: the time-domain correlation as a Toeplitz GEMM on the tensor
+    cores (TF32) in one kernel; `nfft` is accepted for the JAX signature and
+    not needed. Requires L >= 2*window + Lp*S."""
     if seg.device.type == "cpu":
         return deep_mf_score_ref(seg, bank, window, nfft)
     seg, tmpl, ce, ef = _dmf_operands(seg, bank, window, "deep_mf_score")
@@ -191,7 +243,7 @@ def deep_mf_score(seg: torch.Tensor, bank: torch.Tensor, window: int,
     lib = native.load_library()
     err = lib.dmf_launch(seg.data_ptr(), tmpl.data_ptr(), ce.data_ptr(),
                          ef.data_ptr(), out.data_ptr(), b, a, seg_len, lp, s,
-                         n_cand, _stream(seg))
+                         n_cand, 8 * tmpl.shape[2], _stream(seg))
     _check(err, "deep_mf_score")
     LAUNCHES["deep_mf_score"] += 1
     return out
@@ -226,7 +278,8 @@ def deep_mf_max(seg: torch.Tensor, bank: torch.Tensor, window: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """deep_mf_score of bank [A, Lp, S] against seg [B, L], reduced over A
     -> (smax [B, 2w+1] float32, sarg [B, 2w+1] int64, the first a reaching
-    the max). CUDA: one kernel loops over A inside each block, so the
+    the max). CUDA: one kernel holds every hypothesis of a lag tile in the
+    N dimension of its GEMM and reduces over them in registers, so the
     [B, A, 2w+1] surface never reaches device memory."""
     if seg.device.type == "cpu":
         return deep_mf_max_ref(seg, bank, window)
@@ -239,7 +292,8 @@ def deep_mf_max(seg: torch.Tensor, bank: torch.Tensor, window: int
     lib = native.load_library()
     err = lib.dmf_max_launch(seg.data_ptr(), tmpl.data_ptr(), ce.data_ptr(),
                              ef.data_ptr(), smax.data_ptr(), sarg.data_ptr(),
-                             b, a, seg_len, lp, s, n_cand, _stream(seg))
+                             b, a, seg_len, lp, s, n_cand, 8 * tmpl.shape[2],
+                             _stream(seg))
     _check(err, "deep_mf_max")
     LAUNCHES["deep_mf_max"] += 1
     return smax, sarg

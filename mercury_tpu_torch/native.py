@@ -30,11 +30,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # pb, osc, taps, start, out, batch, n, n_out, stride, offset, ntaps, stream
     "mfd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # seg, tmpl, ce, ef, out, batch, num_a, seg_len, lp, s, n_cand, stream
-    "dmf_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # seg, tmpl, ce, ef, smax, sarg, batch, num_a, seg_len, lp, s, n_cand,
+    # seg, tmpl, ce, ef, out, batch, num_a, seg_len, lp, s, n_cand, n_cols,
     # stream
-    "dmf_max_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "dmf_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # seg, tmpl, ce, ef, smax, sarg, batch, num_a, seg_len, lp, s, n_cand,
+    # n_cols, stream
+    "dmf_max_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _P),
     # bb, idx0, fidx, bank_c, et, out, batch, n_dec, m, nsym, s, stream
     "pcs_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

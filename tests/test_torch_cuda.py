@@ -5,9 +5,12 @@ This file imports no JAX, so it runs on a machine with the card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 Tolerances as in tests/test_torch_kernels.py: FIR atol 1e-5 / rtol 1e-4,
 matched-filter scores and their max over the bank rtol/atol 1e-3 with equal
-argmax lags (and equal argmax hypotheses where the top two differ by more
-than 1e-3), pilot scores rtol 1e-4 / atol 1e-5 (float32 sums in another
-order)."""
+argmax lags (on every row in the first score case, on the planted rows and
+wherever the top two lags differ by more than 1e-3 in the ragged cases) and
+equal argmax hypotheses where the top two differ by more than 1e-3, pilot
+scores rtol 1e-4 / atol 1e-5 (float32 sums in another order). The
+matched-filter kernels multiply in TF32 on the tensor cores; the plain
+versions are float32 FFTs."""
 
 import numpy as np
 import pytest
@@ -102,6 +105,91 @@ def test_deep_mf_max_kernel_matches_plain(cuda_device):
     assert clear.float().mean() > 0.5
     assert torch.equal(sarg[clear], ref_arg[clear])
     assert int(smax[2].argmax()) == 123 and int(sarg[2, 123]) == 9
+
+
+# Shapes the tensor-core tiles do not divide: 2w+1 lags ragged against the
+# 256- and 128-lag tiles, 2A = 10, 122 and 140 padded to 16, 128 and 144
+# columns (the last in two N chunks of 128), odd S, one part (CONFIG_0's
+# layout) and four (the refine and scan layout)
+RAGGED = [dict(a=5, lp=1, s=67, window=300),
+          dict(a=5, lp=4, s=67, window=250),
+          dict(a=61, lp=1, s=67, window=300),
+          dict(a=61, lp=4, s=67, window=150),
+          dict(a=70, lp=1, s=67, window=200)]
+RAGGED_IDS = [f"A{c['a']}-Lp{c['lp']}" for c in RAGGED]
+
+
+def _ragged_case(case, device):
+    """Four rows: noise, noise with the last hypothesis planted at lag
+    w + 17, noise, and an all-silent row."""
+    a, lp, s, window = case["a"], case["lp"], case["s"], case["window"]
+    seg, bank = _deep_case(a + lp, a, lp, s, window, 4,
+                           (1, a - 1, window + 17))
+    seg[3] = 0.0
+    return (torch.as_tensor(seg, device=device),
+            torch.as_tensor(bank, device=device))
+
+
+def _clear(score, dim):
+    """Where the top two of score along dim differ by more than 1e-3."""
+    top2 = score.topk(2, dim=dim).values
+    return top2.select(dim, 0) - top2.select(dim, 1) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED, ids=RAGGED_IDS)
+def test_deep_mf_score_kernel_ragged_shapes(cuda_device, case):
+    seg, bank = _ragged_case(case, cuda_device)
+    a, window = case["a"], case["window"]
+    before = kernels.LAUNCHES["deep_mf_score"]
+    got = kernels.deep_mf_score(seg, bank, window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["deep_mf_score"] == before + 1
+    want = kernels.deep_mf_score_ref(seg, bank, window)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    clear = _clear(want, -1)
+    assert torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
+    assert int(got[1, a - 1].argmax()) == window + 17
+    assert (got[3] == 0).all()                      # silent row: gated
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED, ids=RAGGED_IDS)
+def test_deep_mf_max_kernel_ragged_shapes(cuda_device, case):
+    seg, bank = _ragged_case(case, cuda_device)
+    a, window = case["a"], case["window"]
+    before = kernels.LAUNCHES["deep_mf_max"]
+    smax, sarg = kernels.deep_mf_max(seg, bank, window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["deep_mf_max"] == before + 1
+    ref_max, ref_arg = kernels.deep_mf_max_ref(seg, bank, window)
+    torch.testing.assert_close(smax, ref_max, rtol=1e-3, atol=1e-3)
+    clear = _clear(kernels.deep_mf_score_ref(seg, bank, window), 1)
+    assert clear[:3].float().mean() > 0.5
+    assert torch.equal(sarg[clear], ref_arg[clear])
+    assert int(smax[1].argmax()) == window + 17
+    assert int(sarg[1, window + 17]) == a - 1
+    assert (smax[3] == 0).all() and (sarg[3] == 0).all()   # silent row
+
+
+@pytest.mark.cuda
+def test_deep_mf_max_kernel_first_hypothesis_wins_ties(cuda_device):
+    """Row 7 of the bank duplicates row 3: the two score the same at every
+    lag, and sarg must never read 7."""
+    seg, bank = _deep_case(31, 61, 1, 67, 300, 4, (0, 3, 211))
+    bank[7] = bank[3]
+    seg_t = torch.as_tensor(seg, device=cuda_device)
+    bank_t = torch.as_tensor(bank, device=cuda_device)
+    before = kernels.LAUNCHES["deep_mf_max"]
+    smax, sarg = kernels.deep_mf_max(seg_t, bank_t, 300)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["deep_mf_max"] == before + 1
+    ref_max, ref_arg = kernels.deep_mf_max_ref(seg_t, bank_t, 300)
+    torch.testing.assert_close(smax, ref_max, rtol=1e-3, atol=1e-3)
+    assert not (sarg == 7).any()
+    assert int(sarg[0, 211]) == 3 and int(smax[0].argmax()) == 211
+    clear = _clear(kernels.deep_mf_score_ref(seg_t, bank_t, 300), 1)
+    assert torch.equal(sarg[clear], ref_arg[clear])
 
 
 def _pilot_case(device):

@@ -105,6 +105,73 @@ def test_deep_mf_score_ref_matches_pallas(case):
     assert got[row, hyp].argmax() == lag
 
 
+def _toeplitz_scores(seg, packed, s, window):
+    """deep_mf_score as the CUDA kernels compute it: per part l the Toeplitz
+    window X_l[d, 2k + r] = (Re, Im)[r] of seg[d + l*S + k] times the
+    packed bank, |.| of each (Re, Im) column pair, energy-gated, summed over
+    l -> [B, N/2, 2w+1]."""
+    b = seg.shape[0]
+    lp, _, n = packed.shape
+    n_cand = 2 * window + 1
+    x = torch.view_as_real(seg)
+    ce, ef = kernels._energy_terms(seg, s)
+    score = torch.zeros((b, n // 2, n_cand))
+    for l in range(lp):
+        win = x[:, l * s: l * s + n_cand + s - 1].unfold(1, s, 1)
+        xl = win.transpose(-1, -2).reshape(b, n_cand, 2 * s)
+        c = (xl @ packed[l]).reshape(b, n_cand, n // 2, 2)
+        c = torch.linalg.vector_norm(c, dim=-1).transpose(1, 2)
+        e = ce[:, l * s + s: l * s + s + n_cand] - ce[:, l * s: l * s + n_cand]
+        w = torch.where(e > ef, torch.rsqrt(torch.maximum(e, ef)), 0.0)
+        score = score + c * w[:, None]
+    return score
+
+
+@pytest.mark.parametrize("case", [
+    # CONFIG_0's layout (Lp 1), 2A = 10 padded to 16, odd S
+    dict(seed=3, a=5, lp=1, s=67, window=40, rows=3, plant=(1, 4, 33),
+         silence=2),
+    # four parts, 2A = 6 padded to 8
+    dict(seed=4, a=3, lp=4, s=16, window=30, rows=2, plant=(0, 2, 7)),
+    # 61 hypotheses as CONFIG_0's CFO grid: 122 columns padded to 128
+    dict(seed=5, a=61, lp=1, s=12, window=20, rows=2, plant=(1, 60, 3)),
+])
+def test_packed_bank_toeplitz_gemm_matches_plain(case):
+    """The packed bank the CUDA kernels multiply, times the Toeplitz windows
+    in plain torch, reproduces deep_mf_score_ref; the padded columns are
+    zero; the kernels' operand is the same matrix in wgmma's K-major core
+    matrices, rounded to TF32."""
+    seg, bank = (torch.as_tensor(x) for x in _deep_case(**case))
+    a, lp, s = bank.shape
+    packed = kernels.dmf_pack_bank(bank)
+    n = -(-2 * a // 8) * 8
+    assert packed.shape == (lp, 2 * s, n) and packed.dtype == torch.float32
+    assert (packed[..., 2 * a:] == 0).all()
+    got = _toeplitz_scores(seg, packed, s, case["window"])
+    assert (got[:, a:] == 0).all()
+    want = kernels.deep_mf_score_ref(seg, bank, case["window"])
+    torch.testing.assert_close(got[:, :a], want, rtol=1e-5, atol=1e-5)
+    row, hyp, lag = case["plant"]
+    assert int(got[row, hyp].argmax()) == lag
+    kb = kernels._dmf_kernel_bank(bank)
+    s4 = -(-s // 4)
+    assert kb.shape == (lp, s4, n // 8, 2, 8, 4) and kb.is_contiguous()
+    # [l, k4, G, h, row, j] is row 2(4*k4 + j) + h, column 8G + row
+    full = torch.nn.functional.pad(packed, (0, 0, 0, 8 * s4 - 2 * s))
+    want = full.reshape(lp, s4, 4, 2, n // 8, 8).permute(0, 1, 4, 3, 5, 2)
+    torch.testing.assert_close(kb, want, rtol=2 ** -11, atol=0)
+    assert ((kb.view(torch.int32) & 0x1FFF) == 0).all()
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = 1.0
+    x = torch.tensor([one + 2 ** -12, one + 2 ** -11, -(one + 2 ** -11),
+                      one + 3 * 2 ** -11, 0.0, 3.0], dtype=torch.float32)
+    want = torch.tensor([one, one + 2 ** -10, -(one + 2 ** -10),
+                         one + 2 ** -9, 0.0, 3.0], dtype=torch.float32)
+    assert torch.equal(kernels._tf32(x), want)
+
+
 def test_cpu_tensors_take_the_plain_versions(geom):
     """On the CPU the wrappers return their plain versions and count no
     kernel launch; on any other non-CUDA device they raise."""
