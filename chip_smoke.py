@@ -6,7 +6,13 @@
 Builds the CUDA kernels from mercury_tpu_torch/csrc (first use, into
 build/mercury_tpu_torch/), then:
   1. holds each kernel against its plain PyTorch version at the receive
-     path's shapes (batch 256) and times both with CUDA events;
+     path's shapes (batch 256) and times both with CUDA events, the wrapper
+     call and the kernel alone (a raw launch on prepared operands), beside
+     the kernel's bound: the larger of its compulsory bytes over the H100's
+     HBM rate and its operations over the peak rate of their type, reckoned
+     from this run's inputs. mix_fir_decimate also gets a library
+     yardstick: cuDNN conv1d of the real passband with pre-rotated taps,
+     then one complex rotation at the output positions;
   2. drives the port's receive paths, TxChain.transmit -> awgn_passband ->
      RxChain.receive, with batch 256 at Es/N0 12 dB: CONFIG_3 (BPSK 4/16,
      noncoherent deep sync), CONFIG_9 (QPSK 8/16) and CONFIG_0 (BPSK 1/16,
@@ -20,7 +26,9 @@ build/mercury_tpu_torch/), then:
   3. decodes the reference's CONFIG_0, CONFIG_3 and CONFIG_9 capture
      buffers (tests/golden) to their reference bytes.
 Any failure raises (non-zero exit). Without a CUDA device it exits non-zero
-before printing a result. The last line is
+before printing a result. The line before the last lists the kernels
+(launches on the main paths, error, times, bound, library time); the last
+line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -33,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from mercury_tpu.core.geometry import build_geometry
+from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch import native
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.dsp import kernels
@@ -60,6 +68,26 @@ PATH_KERNELS = {3: ("mix_fir_decimate", "deep_mf_score"),
 # the matched-filter kernels' tensor-core arithmetic
 MF_FORM = ("TF32 one pass: wgmma m64nNk8 tf32 x tf32 -> f32 (A from "
            "registers, B from shared memory), operands rounded with cvt.rna")
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"FP32": 67e12, "TF32": 495e12}
+
+
+def bound(nbytes: float, flops: float, kind: str) -> dict:
+    """The least time the card could take: compulsory bytes over the HBM
+    rate or operations over the peak of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "flop_kind": kind}
+
+
+def bound_text(b: dict, kernel_ms: float) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e9:.3f} GFLOP "
+            f"{b['flop_kind']}); the kernel alone at "
+            f"{100 * b['bound_ms'] / kernel_ms:.1f}% of it")
 
 
 def mf_tflops(rows: int, bank_shape, n_cand: int, ms: float) -> float:
@@ -84,6 +112,46 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def raw_ms(launch, reps: int = 20) -> float:
+    """Mean device time of a raw kernel launch (a C entry point of the
+    kernel library on prepared operands, no torch work around it): the
+    kernel alone, not its wrapper's host side."""
+    err = launch()
+    assert err == 0, f"launch failed: cudaError_t {err}"
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def mf_bound(rows: int, seg_len: int, bank_shape, n_cand: int,
+             out_bytes: int) -> dict:
+    """Matched-filter bound: seg (8 B a sample), bank, outputs of out_bytes
+    per (row, lag); 8 flops per complex multiply-add at the TF32 peak."""
+    a, lp, s = bank_shape
+    return bound(8 * rows * seg_len + 8 * a * lp * s
+                 + out_bytes * rows * n_cand,
+                 8.0 * rows * a * n_cand * lp * s, "TF32")
+
+
+def mf_raw(name: str, seg, bank, window: int, outs):
+    """A raw launch of a matched-filter kernel on _dmf_operands' operands
+    (packing and prefix sums done once, outside the timing)."""
+    lib = native.load_library()
+    seg, tmpl, ce, ef = kernels._dmf_operands(seg, bank, window, name)
+    b, seg_len = seg.shape
+    a, lp, s = bank.shape
+    fn = lib.dmf_launch if name == "deep_mf_score" else lib.dmf_max_launch
+    operands = (seg, tmpl, ce, ef, *outs)        # alive as long as the launch
+    return lambda: fn(*[t.data_ptr() for t in operands], b, a, seg_len, lp, s,
+                      2 * window + 1, 8 * tmpl.shape[2], kernels._stream(seg))
+
+
 def golden(name: str) -> np.ndarray:
     meta = {}
     for f in sorted(GOLDEN.glob("meta*.json")):
@@ -93,12 +161,61 @@ def golden(name: str) -> np.ndarray:
                        dtype=np.dtype(info["dtype"])).reshape(info["shape"])
 
 
+def fir_window_samples(n: int, start: torch.Tensor, n_out: int,
+                       stride: int, offset: int, ntaps: int):
+    """(passband samples the FIR reads over all rows, oscillator samples it
+    reads once): each row's input window clipped to [0, n)."""
+    lo = torch.clamp(start + offset - (ntaps - 1), 0, n)
+    hi = torch.clamp(start + offset + (n_out - 1) * stride + 1, 0, n)
+    used = torch.zeros(n + 1, dtype=torch.int32, device=start.device)
+    used.index_add_(0, lo, torch.ones_like(lo, dtype=torch.int32))
+    used.index_add_(0, hi, -torch.ones_like(hi, dtype=torch.int32))
+    return int((hi - lo).sum()), int((used.cumsum(0)[:n] > 0).sum())
+
+
+def fir_bound(b: int, n: int, start, n_out: int, stride: int, offset: int,
+              ntaps: int) -> dict:
+    """Bytes: the passband windows (4 B), the oscillator over their union
+    (8 B), taps, output (8 B); flops: 2 per sample mixed, 4 per tap of an
+    output (FP32)."""
+    pb_n, osc_n = fir_window_samples(n, start, n_out, stride, offset, ntaps)
+    return bound(4 * pb_n + 8 * osc_n + 4 * ntaps + 8 * b * n_out,
+                 2 * pb_n + 4 * b * n_out * ntaps, "FP32")
+
+
+def fir_library(pb, _osc, taps, stride, g):
+    """One PyTorch call for the TS FIR: cuDNN conv1d of the real passband
+    with the taps pre-rotated by e^{-jwj} (float64, 2 output channels:
+    Re, Im), then the oscillator's rotation sqrt(2) e^{jw(m*stride + c)} at
+    each output m, c the 'same' centre. (TF32 is off for cuDNN.)"""
+    ntaps = taps.shape[0]
+    c = (ntaps - 1) // 2
+    w = 2 * np.pi * g.fc / g.fs
+    rot_taps = (taps.double().cpu().numpy()
+                * np.exp(-1j * w * np.arange(ntaps)))[::-1]
+    weight = torch.as_tensor(np.stack([rot_taps.real, rot_taps.imag])[:, None],
+                             dtype=torch.float32, device=pb.device)
+    n_out = (pb.shape[1] - 1) // stride + 1
+    ph = w * (np.arange(n_out, dtype=np.float64) * stride + c)
+    rot = torch.as_tensor((np.sqrt(2.0) * np.exp(1j * ph)).astype(np.complex64),
+                          device=pb.device)
+
+    def run():
+        y = torch.nn.functional.conv1d(pb[:, None], weight, stride=stride,
+                                       padding=ntaps - 1 - c)
+        return torch.complex(y[:, 0], y[:, 1]) * rot
+    return run
+
+
 def check_mix_fir_decimate(rx: RxChain, gen: torch.Generator) -> dict:
     """TS form [256, 118592] stride 4 and the per-row-start data-FIR form
-    (CONFIG_3 shapes) against the plain version: max abs error <= 1e-4."""
+    (CONFIG_3 shapes) against the plain version: max abs error <= 1e-4.
+    Timed through the wrapper and as the kernel alone, beside the bound and
+    the conv1d yardstick (which must agree within 1e-4)."""
     g = rx.geom
     n = g.nofdm * g.buffer_nsymb * g.interp
     dev = rx.device
+    lib = native.load_library()
     pb = 0.3 * torch.randn((BATCH, n), generator=gen, device=dev)
     osc = rx._osc_const(n)
     ts = (pb, osc, rx._fir_ts, g.interp)
@@ -115,16 +232,48 @@ def check_mix_fir_decimate(rx: RxChain, gen: torch.Generator) -> dict:
     print(f"mix_fir_decimate: max abs err TS {err_ts:.3e}, data FIR "
           f"{err_data:.3e} (limit 1e-4)")
     assert err_ts <= 1e-4 and err_data <= 1e-4
+    library = fir_library(*ts, g)
+    lib_err = (library() - kernels.mix_fir_decimate(*ts)).abs().max().item()
+    assert lib_err <= 1e-4, f"conv1d yardstick differs by {lib_err}"
+    n_ts = (n - 1) // g.interp + 1
+    zeros = torch.zeros(BATCH, dtype=torch.int64, device=dev)
+    out_ts = torch.empty((BATCH, n_ts), dtype=torch.complex64, device=dev)
+    out_data = torch.empty((BATCH, row["n_out"]), dtype=torch.complex64,
+                           device=dev)
+
+    def raw(taps, st, out, n_out, offset):      # st None: every row at 0
+        return lambda: lib.mfd_launch(
+            pb.data_ptr(), osc.data_ptr(), taps.data_ptr(),
+            None if st is None else st.data_ptr(), out.data_ptr(), BATCH, n,
+            n_out, g.interp, offset, ntaps, kernels._stream(pb))
+
     out = {"max_abs_err": max(err_ts, err_data),
            "ms": cuda_ms(lambda: kernels.mix_fir_decimate(*ts)),
-           "plain_ms": cuda_ms(lambda: kernels.mix_fir_decimate_ref(*ts))}
+           "kernel_ms": raw_ms(raw(rx._fir_ts, None, out_ts, n_ts,
+                                   (ntaps - 1) // 2)),
+           "plain_ms": cuda_ms(lambda: kernels.mix_fir_decimate_ref(*ts)),
+           "library_ms": cuda_ms(library)}
+    out.update(fir_bound(BATCH, n, zeros, n_ts, g.interp, (ntaps - 1) // 2,
+                         ntaps))
+    data_bound = fir_bound(BATCH, n, start, row["n_out"], g.interp,
+                           row["offset"], ntaps)
     out["data_ms"] = cuda_ms(lambda: kernels.mix_fir_decimate(*data, **row))
+    out["data_kernel_ms"] = raw_ms(raw(rx._fir_data, start, out_data,
+                                       row["n_out"], row["offset"]))
     out["data_plain_ms"] = cuda_ms(
         lambda: kernels.mix_fir_decimate_ref(*data, **row))
-    print(f"mix_fir_decimate TS [{BATCH},{n}] s4: kernel {out['ms']:.4f} ms, "
-          f"plain {out['plain_ms']:.4f} ms; data FIR -> [{BATCH},"
-          f"{frame // g.interp}]: kernel {out['data_ms']:.4f} ms, plain "
-          f"{out['data_plain_ms']:.4f} ms")
+    out["data_bound_ms"] = data_bound["bound_ms"]
+    print(f"mix_fir_decimate TS [{BATCH},{n}] s4: wrapper {out['ms']:.4f} "
+          f"ms, kernel alone {out['kernel_ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms; {bound_text(out, out['kernel_ms'])}; "
+          f"library (two calls: cuDNN conv1d [{BATCH},1,{n}] x [2,1,{ntaps}] "
+          f"stride {g.interp}, then torch.complex * rotation) "
+          f"{out['library_ms']:.4f} ms, agrees within {lib_err:.3e}")
+    print(f"mix_fir_decimate data FIR -> [{BATCH},{row['n_out']}] at per-row "
+          f"starts: wrapper {out['data_ms']:.4f} ms, kernel alone "
+          f"{out['data_kernel_ms']:.4f} ms, plain {out['data_plain_ms']:.4f} "
+          f"ms; {bound_text(data_bound, out['data_kernel_ms'])}; library: "
+          f"none (per-row starts)")
     return out
 
 
@@ -163,16 +312,23 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator) -> dict:
         err = (got - want).abs().max().item()
         out["max_abs_err"] = max(out["max_abs_err"], err)
         k_ms = cuda_ms(lambda: kernels.deep_mf_score(seg, bank, window), 5)
+        raw = raw_ms(mf_raw("deep_mf_score", seg, bank, window,
+                            [torch.empty_like(got)]), 5)
         p_ms = cuda_ms(lambda: kernels.deep_mf_score_ref(seg, bank, window), 5)
+        bd = mf_bound(rows, seg_len, bank.shape, 2 * window + 1, 4)
         if label == "scan":
-            out["ms"], out["plain_ms"] = k_ms, p_ms
+            out.update(bd, ms=k_ms, kernel_ms=raw, plain_ms=p_ms)
         else:
-            out["refine_ms"], out["refine_plain_ms"] = k_ms, p_ms
+            out.update(refine_ms=k_ms, refine_kernel_ms=raw,
+                       refine_plain_ms=p_ms, refine_bound_ms=bd["bound_ms"])
         print(f"deep_mf_score {label} [{rows},{seg_len}]x{list(bank.shape)} "
               f"w={window}: max abs err {err:.3e}, argmax equal on {rows} "
-              f"planted rows; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
-              f"{mf_tflops(rows, bank.shape, 2 * window + 1, k_ms):.2f} "
-              f"TFLOP/s effective; {MF_FORM}")
+              f"planted rows; wrapper {k_ms:.4f} ms, kernel alone "
+              f"{raw:.4f} ms, plain {p_ms:.4f} ms; "
+              f"{mf_tflops(rows, bank.shape, 2 * window + 1, raw):.2f} "
+              f"TFLOP/s effective (kernel alone); {bound_text(bd, raw)}; "
+              f"library: none; {MF_FORM}")
+    out["library_ms"] = None
     return out
 
 
@@ -182,7 +338,7 @@ def check_deep_mf_max(rx: RxChain, gen: torch.Generator) -> dict:
     wherever the plain top-two margin exceeds 1e-3; argmax over lags equal
     on every planted row."""
     dev = rx.device
-    _, bank, _ = rx._coherent_banks(8)
+    _, bank, _, _ = rx._coherent_banks(8)
     window = 7140
     seg_len = 2 * window + bank.shape[-1]
     seg = torch.complex(torch.randn((BATCH, seg_len), generator=gen,
@@ -208,24 +364,33 @@ def check_deep_mf_max(rx: RxChain, gen: torch.Generator) -> dict:
     err = (smax - ref_max).abs().max().item()
     out = {"max_abs_err": err,
            "ms": cuda_ms(lambda: kernels.deep_mf_max(seg, bank, window), 5),
+           "kernel_ms": raw_ms(mf_raw("deep_mf_max", seg, bank, window,
+                                      [torch.empty_like(smax),
+                                       torch.empty_like(sarg)]), 5),
            "plain_ms": cuda_ms(
-               lambda: kernels.deep_mf_max_ref(seg, bank, window), 5)}
+               lambda: kernels.deep_mf_max_ref(seg, bank, window), 5),
+           "library_ms": None}
+    out.update(mf_bound(BATCH, seg_len, bank.shape, 2 * window + 1, 12))
     print(f"deep_mf_max [{BATCH},{seg_len}]x{list(bank.shape)} w={window}: "
           f"max abs err {err:.3e}; sarg equal on {BATCH} planted lags and "
           f"{int(clear.sum())}/{clear.numel()} lags with a clear margin; "
-          f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms; "
-          f"{mf_tflops(BATCH, bank.shape, 2 * window + 1, out['ms']):.2f} "
-          f"TFLOP/s effective; {MF_FORM}")
+          f"wrapper {out['ms']:.4f} ms, kernel alone {out['kernel_ms']:.4f} "
+          f"ms, plain {out['plain_ms']:.4f} ms; "
+          f"{mf_tflops(BATCH, bank.shape, 2 * window + 1, out['kernel_ms']):.2f}"
+          f" TFLOP/s effective (kernel alone); "
+          f"{bound_text(out, out['kernel_ms'])}; library: none; {MF_FORM}")
     return out
 
 
 def check_pilot_cand_score(rx: RxChain, gen: torch.Generator) -> dict:
     """[256,14824] rows, M=32, bank [61,48,136]: row 1 half-silent, row 2
-    silent, candidates clipped at both ends; rtol 1e-4, atol 1e-5."""
+    silent, candidates clipped at both ends; rtol 1e-4, atol 1e-5. The
+    prepared bank comes from the chain's cache, as on the path."""
     dev = rx.device
-    _, _, bank = rx._coherent_banks(8)
+    _, _, bank, prepared = rx._coherent_banks(8)
     n_dec, m = 14824, 32
-    span = bank.shape[1] * bank.shape[2]
+    f_n, nsym, s_d = bank.shape
+    span = nsym * s_d
     bb = torch.complex(torch.randn((BATCH, n_dec), generator=gen, device=dev),
                        torch.randn((BATCH, n_dec), generator=gen, device=dev))
     bb[1, n_dec // 2:] = 0
@@ -234,20 +399,44 @@ def check_pilot_cand_score(rx: RxChain, gen: torch.Generator) -> dict:
                          device=dev)
     idx0[:, 0] = -100
     idx0[:, 1] = n_dec
-    fidx = torch.randint(0, bank.shape[0], (BATCH, m), generator=gen,
-                         device=dev)
+    fidx = torch.randint(0, f_n, (BATCH, m), generator=gen, device=dev)
     args = (bb, idx0, fidx, bank)
-    got = kernels.pilot_cand_score(*args)
+    got = kernels.pilot_cand_score(*args, prepared)
     want = kernels.pilot_cand_score_ref(*args)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert (got[2] == 0).all() and (got[0] > 0).all()
     err = (got - want).abs().max().item()
+    # the kernel alone (it clips the candidates itself)
+    lib = native.load_library()
+    res = torch.empty_like(got)
+    ptrs = [t.data_ptr() for t in (bb, idx0, fidx, *prepared, res)]
     out = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: kernels.pilot_cand_score(*args)),
-           "plain_ms": cuda_ms(lambda: kernels.pilot_cand_score_ref(*args))}
+           "ms": cuda_ms(lambda: kernels.pilot_cand_score(*args, prepared)),
+           "kernel_ms": raw_ms(lambda: lib.pcs_launch(
+               *ptrs, BATCH, n_dec, n_dec, 1, m, f_n, nsym, s_d,
+               kernels._stream(bb))),
+           "plain_ms": cuda_ms(lambda: kernels.pilot_cand_score_ref(*args)),
+           "library_ms": None}
+    # compulsory bytes: each row's samples under some candidate, the bank
+    # rows referenced, starts, rows, energies and scores; flops: 8 per
+    # complex multiply-add and 4 per sample energy
+    st, fr = kernels._clip_candidates(n_dec, idx0, fidx, bank)
+    cover = torch.zeros((BATCH, n_dec + 1), dtype=torch.int32, device=dev)
+    one = torch.ones_like(st, dtype=torch.int32)
+    cover.scatter_add_(1, st, one)
+    cover.scatter_add_(1, st + span, -one)
+    row_samples = int((cover.cumsum(1)[:, :n_dec] > 0).sum())
+    n_rows_used = int(torch.unique(fr).numel())
+    out.update(bound(8 * row_samples + 8 * n_rows_used * span
+                     + 16 * BATCH * m + 4 * nsym + 4 * BATCH * m,
+                     12.0 * BATCH * m * span, "FP32"))
     print(f"pilot_cand_score [{BATCH},{n_dec}] M={m} x{list(bank.shape)}: "
-          f"max abs err {err:.3e} (bursty, silent and clipped cases); kernel "
-          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms")
+          f"max abs err {err:.3e} (bursty, silent and clipped cases); "
+          f"wrapper {out['ms']:.4f} ms, kernel alone {out['kernel_ms']:.4f} "
+          f"ms, plain {out['plain_ms']:.4f} ms; "
+          f"{bound_text(out, out['kernel_ms'])} ({n_rows_used} bank rows "
+          f"referenced; templates read per (row, candidate): "
+          f"{8 * BATCH * m * span / 1e6:.1f} MB); library: none")
     return out
 
 
@@ -290,7 +479,7 @@ def drive_main_path(cfg: int, dev: torch.device) -> dict:
         res.freq_offset).all()
     assert (res.delay - delay).abs().max().item() <= g.ngi * g.interp
     # the first rows of the same buffer through the CPU plain versions
-    rx_cpu = RxChain(g)
+    rx_cpu = RxChain(g, device="cpu")
     ref = rx_cpu.receive(buf[:4].cpu())
     assert torch.equal(ref.crc_ok, res.crc_ok[:4].cpu())
     assert torch.equal(ref.delay, res.delay[:4].cpu())
@@ -303,8 +492,8 @@ def drive_main_path(cfg: int, dev: torch.device) -> dict:
           f"channel {t_tx * 1e3:.2f} ms; receive first {times[0] * 1e3:.2f} "
           f"ms, steady {t_rx * 1e3:.2f} ms (min of {len(times) - 1}) = "
           f"{msps:.3f} Msamples/s; iters mean "
-          f"{res.iters.double().mean().item():.3f}; launches {launches}; "
-          f"CPU plain run agrees on rows 0-3")
+          f"{res.iters.double().mean().item():.3f}; launches {launches} "
+          f"over {len(times)} receives; CPU plain run agrees on rows 0-3")
     return {"receive_ms": t_rx * 1e3, "msamples_per_s": msps,
             "launches": launches}
 
@@ -394,8 +583,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name],
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         **{k: stats[name][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "kernel_ms")}}
         for name, (src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

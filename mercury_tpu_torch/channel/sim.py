@@ -1,5 +1,5 @@
-"""Channel simulator: AWGN capture buffers (PyTorch port of
-`mercury_tpu.channel.sim`). Noise samples come from a `torch.Generator`;
+"""Channel simulator: AWGN capture buffers (PyTorch port of the JAX
+package's `channel/sim.py`). Noise samples come from a `torch.Generator`;
 only their statistics match the JAX package, not the samples."""
 
 from __future__ import annotations

@@ -62,7 +62,7 @@ def mix_fir_decimate_ref(pb: torch.Tensor, osc: torch.Tensor,
     n = pb.shape[-1]
     seg_len = n_out * stride + ntaps - 1
     lo = offset - (ntaps - 1)                    # seg[k] = x[start + lo + k]
-    pad_l = max(-lo, 0)
+    pad_l = max(-(int(start.min()) + lo), 0)
     pad_r = max(int(start.max()) + lo + seg_len - n, 0)
     xp = torch.nn.functional.pad(x, (pad_l, pad_r))
     idx = (start + lo + pad_l)[:, None] + torch.arange(
@@ -79,31 +79,36 @@ def mix_fir_decimate(pb: torch.Tensor, osc: torch.Tensor, taps: torch.Tensor,
     decimating FIR in one pass (see mix_fir_decimate_ref for the function).
 
     CUDA: float32 pb, complex64 osc, float32 taps, int64 start, all on one
-    device; output complex64."""
+    device; output complex64. A block per tile of 512 outputs of one row
+    (of two rows for the "same" form, which share the oscillator) mixes the
+    tile's input window once into shared memory and filters it from
+    there."""
     if pb.device.type == "cpu":
         return mix_fir_decimate_ref(pb, osc, taps, stride, start, n_out,
                                     offset)
     _require(pb.device.type == "cuda", f"unsupported device {pb.device}")
     b, n = pb.shape
     ntaps = taps.shape[0]
+    operands = [(pb, torch.float32, (b, n)), (osc, torch.complex64, (n,)),
+                (taps, torch.float32, (ntaps,))]
     if start is None:                      # "same" alignment from sample 0
-        start = torch.zeros(b, dtype=torch.int64, device=pb.device)
         n_out, offset = (n - 1) // stride + 1, (ntaps - 1) // 2
     elif n_out is None or offset is None:
         raise ValueError("a per-row start needs n_out and offset")
-    for t, dt, shape in ((pb, torch.float32, (b, n)),
-                         (osc, torch.complex64, (n,)),
-                         (taps, torch.float32, (ntaps,)),
-                         (start, torch.int64, (b,))):
+    else:
+        operands.append((start, torch.int64, (b,)))
+    for t, dt, shape in operands:
         _require(t.device == pb.device and t.dtype == dt
                  and tuple(t.shape) == shape and t.is_contiguous(),
                  f"mix_fir_decimate: expected contiguous {dt} {shape} on "
                  f"{pb.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     out = torch.empty((b, n_out), dtype=torch.complex64, device=pb.device)
     lib = native.load_library()
+    # a NULL start: every row starts at 0, and rows share oscillator reads
     err = lib.mfd_launch(pb.data_ptr(), osc.data_ptr(), taps.data_ptr(),
-                         start.data_ptr(), out.data_ptr(), b, n, n_out,
-                         stride, offset, ntaps, _stream(pb))
+                         None if start is None else start.data_ptr(),
+                         out.data_ptr(), b, n, n_out, stride, offset, ntaps,
+                         _stream(pb))
     _check(err, "mix_fir_decimate")
     LAUNCHES["mix_fir_decimate"] += 1
     return out
@@ -315,6 +320,20 @@ def _clip_candidates(n_dec: int, idx0: torch.Tensor, fidx: torch.Tensor,
             torch.clamp(fidx.long(), 0, f_n - 1))
 
 
+def pilot_energy(bank: torch.Tensor) -> torch.Tensor:
+    """Energy of each template symbol of bank row 0 [Nsym] float32, the
+    normalization of pilot_cand_score."""
+    return torch.sum(torch.abs(bank[0]) ** 2, dim=-1)
+
+
+def pilot_bank(bank: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bank [F, Nsym, S_d] as the pilot_cand_score kernel reads it:
+    transposed to [F, S_d, Nsym] (a thread per symbol, neighbouring threads
+    on neighbouring symbols), and its pilot_energy. A chain prepares both
+    once per bank and passes them to every call."""
+    return bank.transpose(1, 2).contiguous(), pilot_energy(bank)
+
+
 def pilot_cand_score_ref(bb_dec: torch.Tensor, idx0: torch.Tensor,
                          fidx: torch.Tensor, bank: torch.Tensor
                          ) -> torch.Tensor:
@@ -333,17 +352,23 @@ def pilot_cand_score_ref(bb_dec: torch.Tensor, idx0: torch.Tensor,
     bk = torch.conj_physical(bank)[fidx]               # [B, M, Nsym, S_d]
     c = torch.sum(seg * bk, dim=-1)                    # [B, M, Nsym]
     e_s = torch.sum(seg.real ** 2 + seg.imag ** 2, dim=-1)
-    e_t = torch.sum(torch.abs(bank[0]) ** 2, dim=-1)   # [Nsym]
+    e_t = pilot_energy(bank)                           # [Nsym]
     e_floor = 1e-4 * torch.mean(e_s, dim=(-2, -1), keepdim=True) + 1e-20
     term = torch.abs(c) / torch.sqrt(torch.clamp(e_s * e_t, min=1e-30))
     return torch.sum(torch.where(e_s > e_floor, term, 0.0), dim=-1)
 
 
 def pilot_cand_score(bb_dec: torch.Tensor, idx0: torch.Tensor,
-                     fidx: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+                     fidx: torch.Tensor, bank: torch.Tensor,
+                     prepared: tuple[torch.Tensor, torch.Tensor] | None = None
+                     ) -> torch.Tensor:
     """Pilot-lattice scores [B, M] of candidate starts idx0 [B, M] (into
     bb_dec [B, n_dec]) at template rows fidx [B, M] of bank [F, Nsym, S_d]
-    (see pilot_cand_score_ref). CUDA: one kernel, one block per row."""
+    (see pilot_cand_score_ref). prepared is pilot_bank(bank), computed here
+    when not given. CUDA: one kernel, a cluster of two blocks per row, a
+    thread per (candidate, symbol). It clips the starts and template rows
+    itself, conjugates the bank as it reads it, and takes bb_dec as a
+    strided view (the receive path's decimated baseband) without a copy."""
     if bb_dec.device.type == "cpu":
         return pilot_cand_score_ref(bb_dec, idx0, fidx, bank)
     _require(bb_dec.device.type == "cuda",
@@ -351,23 +376,36 @@ def pilot_cand_score(bb_dec: torch.Tensor, idx0: torch.Tensor,
     b, n_dec = bb_dec.shape
     m = idx0.shape[1]
     f_n, nsym, s_d = bank.shape
-    _require(bb_dec.dtype == torch.complex64 and bank.dtype == torch.complex64,
-             "pilot_cand_score: complex64 baseband and bank required")
-    _require(all(t.device == bb_dec.device for t in (idx0, fidx, bank)),
+    bank_t, e_t = pilot_bank(bank) if prepared is None else prepared
+    _require(bb_dec.dtype == torch.complex64
+             and bank_t.dtype == torch.complex64
+             and e_t.dtype == torch.float32,
+             "pilot_cand_score: complex64 baseband and bank, float32 "
+             "energies required")
+    _require(all(t.device == bb_dec.device
+                 for t in (idx0, fidx, bank_t, e_t)),
              "pilot_cand_score: operands on different devices")
     _require(tuple(idx0.shape) == tuple(fidx.shape) == (b, m),
              f"pilot_cand_score: idx0 {tuple(idx0.shape)} and fidx "
              f"{tuple(fidx.shape)} must both be ({b}, M)")
-    idx0, fidx = (t.contiguous() for t in
-                  _clip_candidates(n_dec, idx0, fidx, bank))
-    bb_dec = bb_dec.contiguous()
-    bank_c = torch.conj_physical(bank).contiguous()
-    e_t = torch.sum(torch.abs(bank[0]) ** 2, dim=-1).contiguous()
+    _require(tuple(bank_t.shape) == (f_n, s_d, nsym)
+             and tuple(e_t.shape) == (nsym,),
+             f"pilot_cand_score: prepared bank {tuple(bank_t.shape)} and "
+             f"energies {tuple(e_t.shape)} do not match the bank "
+             f"{tuple(bank.shape)}")
+    _require(n_dec >= nsym * s_d,
+             f"pilot_cand_score: row of {n_dec} shorter than the "
+             f"{nsym}x{s_d} template")
+    if bb_dec.stride(-1) < 1:
+        bb_dec = bb_dec.contiguous()
+    idx0, fidx, bank_t, e_t = (t.contiguous() for t in
+                               (idx0.long(), fidx.long(), bank_t, e_t))
     out = torch.empty((b, m), dtype=torch.float32, device=bb_dec.device)
     lib = native.load_library()
     err = lib.pcs_launch(bb_dec.data_ptr(), idx0.data_ptr(), fidx.data_ptr(),
-                         bank_c.data_ptr(), e_t.data_ptr(), out.data_ptr(),
-                         b, n_dec, m, nsym, s_d, _stream(bb_dec))
+                         bank_t.data_ptr(), e_t.data_ptr(), out.data_ptr(),
+                         b, n_dec, bb_dec.stride(0), bb_dec.stride(1), m,
+                         f_n, nsym, s_d, _stream(bb_dec))
     _check(err, "pilot_cand_score")
     LAUNCHES["pilot_cand_score"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Batched DSP primitives (PyTorch port of `mercury_tpu.dsp.ops`).
+"""Batched DSP primitives (PyTorch port of the JAX package's `dsp/ops.py`).
 
 Each function computes the plain equality its JAX counterpart states; the
 JAX package's matmul formulations for the TPU's matrix unit are not carried

@@ -1,6 +1,6 @@
-"""LDPC encode and layered sum-product decode (PyTorch port of
-`mercury_tpu.fec.ldpc`: `encode` and `decode_mm` in its default layered SPA
-schedule).
+"""LDPC encode and layered sum-product decode (PyTorch port of the JAX
+package's `fec/ldpc.py`: `encode` and `decode_mm` in its default layered
+SPA schedule).
 
 The JAX decoder moves messages with one-hot incidence matmuls whose data
 operand is bfloat16. Here the same moves are a gather and a scatter-add, and
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mercury_tpu.fec.tables import LdpcCode, load_code
+from mercury_tpu_torch.fec.tables import LdpcCode, load_code
 
 
 def encode(gen: torch.Tensor, info_bits: torch.Tensor) -> torch.Tensor:

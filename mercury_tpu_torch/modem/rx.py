@@ -1,5 +1,5 @@
 """Receive chain: passband capture buffer -> decoded payload (PyTorch port of
-the OFDM path of `mercury_tpu.modem.rx.RxChain`).
+the OFDM path of `RxChain` in the JAX package's `modem/rx.py`).
 
 Stages, in order: mixer + strided time-sync FIR (CUDA kernel
 `mix_fir_decimate`), Schmidl-Cox top-K candidates, then the delay and coarse
@@ -28,11 +28,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from mercury_tpu.core import crc as crc_mod
-from mercury_tpu.core import hostdsp
-from mercury_tpu.core.geometry import ModeGeometry
-from mercury_tpu.core.modes import ZERO_FORCE
-from mercury_tpu_torch.convert import rx_state_from_numpy
+from mercury_tpu_torch.convert import resolve_device, rx_state_from_numpy
+from mercury_tpu_torch.core import crc as crc_mod
+from mercury_tpu_torch.core import hostdsp
+from mercury_tpu_torch.core.geometry import ModeGeometry
+from mercury_tpu_torch.core.modes import ZERO_FORCE
 from mercury_tpu_torch.dsp import kernels, ops
 from mercury_tpu_torch.fec.ldpc import LayeredDecoder
 from mercury_tpu_torch.modem import psk, sync
@@ -199,6 +199,10 @@ class RxChain(nn.Module):
     (auto: CONFIG_0) the coherent scan, pilot-lattice arbitration and the
     CRC-gated rescue decode. Options and modes outside this port raise
     NotImplementedError naming their ROADMAP item.
+
+    The chain lives on the CUDA card unless `device` names another;
+    device="cpu" runs the kernels' plain versions (see
+    convert.resolve_device).
     """
 
     def __init__(self, geom: ModeGeometry, device=None, ctrl: bool = False,
@@ -208,6 +212,7 @@ class RxChain(nn.Module):
                  bicm_iters: int | None = None, ldpc_max_iter: int = 50):
         super().__init__()
         g = geom
+        device = resolve_device(device)
         if g.spec.is_mfsk or ctrl:
             raise _roadmap(11, "MFSK/ROBUST modes and ctrl frames")
         if deep_sync is None:
@@ -233,7 +238,7 @@ class RxChain(nn.Module):
         self.deep_sync = bool(deep_sync)
         self.deep_coherent = self.deep_sync and bool(deep_coherent)
         arrays, scalars = host_constants(g, self.deep_sync)
-        for name, t in rx_state_from_numpy(arrays).items():
+        for name, t in rx_state_from_numpy(arrays, device).items():
             self.register_buffer(name, t)
         self.ramp_dbin = scalars["ramp_dbin"]
         self.ramp2_dbin = scalars["ramp2_dbin"]
@@ -241,8 +246,8 @@ class RxChain(nn.Module):
         self.crc_nbits = (g.frame_bytes + 2) * 8
         self.decoder = LayeredDecoder(g.spec.ldpc_rate_num, ldpc_max_iter)
         self._osc_cache: dict = {}
-        if device is not None:
-            self.to(device)
+        self._bank_cache: dict = {}
+        self.to(device)
 
     @property
     def device(self) -> torch.device:
@@ -384,18 +389,27 @@ class RxChain(nn.Module):
         return (tmpl_d.to(torch.complex128)[None] * rot).to(torch.complex64)
 
     def _coherent_banks(self, mf_d: int):
-        """CONFIG_0's CFO grid [F] (+-120 Hz in 4 Hz steps) and its two
-        banks at mf_d: the preamble as one symbol [F, 1, Lp*S_d], rotated in
-        absolute time, and the pilot-only symbols [F, Nsymb, S_d], rotated
-        in local symbol time."""
-        tmpl_d = self._mf_templates[:, ::mf_d]
-        lp, s_d = tmpl_d.shape
-        n_h = int(round(120.0 / DEEP_COH_GRID_HZ))
-        grid = np.arange(-n_h, n_h + 1) * DEEP_COH_GRID_HZ
-        coh = self._rotated_bank(tmpl_d, grid, mf_d,
-                                 self._mf_templates.shape[1])
-        pil = self._rotated_bank(self._pil_templates[:, ::mf_d], grid, mf_d)
-        return grid, coh.reshape(len(grid), 1, lp * s_d), pil
+        """CONFIG_0's CFO grid [F] (+-120 Hz in 4 Hz steps) and its banks at
+        mf_d: the preamble as one symbol [F, 1, Lp*S_d], rotated in absolute
+        time, the pilot-only symbols [F, Nsymb, S_d], rotated in local
+        symbol time, and that bank prepared for the pilot kernel
+        (kernels.pilot_bank). Built once per (mf_d, device) and kept, as
+        _osc_const keeps the oscillator."""
+        key = (mf_d, self.device)
+        banks = self._bank_cache.get(key)
+        if banks is None:
+            tmpl_d = self._mf_templates[:, ::mf_d]
+            lp, s_d = tmpl_d.shape
+            n_h = int(round(120.0 / DEEP_COH_GRID_HZ))
+            grid = np.arange(-n_h, n_h + 1) * DEEP_COH_GRID_HZ
+            coh = self._rotated_bank(tmpl_d, grid, mf_d,
+                                     self._mf_templates.shape[1])
+            pil = self._rotated_bank(self._pil_templates[:, ::mf_d], grid,
+                                     mf_d)
+            banks = (grid, coh.reshape(len(grid), 1, lp * s_d), pil,
+                     kernels.pilot_bank(pil))
+            self._bank_cache[key] = banks
+        return banks
 
     def _coherent_acquire(self, bb_ts: torch.Tensor, mf_d: int, ts_dec: int):
         """CONFIG_0's coherent whole-buffer acquisition (mercury_tpu rx.py
@@ -410,13 +424,13 @@ class RxChain(nn.Module):
         span = lp * (s_tmpl // mf_d)
         win_g = (bb_ts.shape[-1] // mf_s - span) // 2
         seg_g = bb_ts[:, : (2 * win_g + span) * mf_s: mf_s]
-        grid, bank_coh, bank_pil = self._coherent_banks(mf_d)
+        grid, bank_coh, bank_pil, pil_prep = self._coherent_banks(mf_d)
         smax, sarg = sync.coherent_scan_max(seg_g, bank_coh, win_g)
         d_lag, _ = sync.topk_pooled(smax, 0, DEEP_PIL_TOPM, 8)   # [B, M]
         f_top = torch.gather(sarg, 1, d_lag)
         d_top = d_lag * mf_d                        # interp-rate starts
         score_p = sync.pilot_rescore(bb_ts, d_top, f_top, bank_pil, mf_s,
-                                     ts_dec, lp * s_tmpl)          # [B, M]
+                                     ts_dec, lp * s_tmpl, pil_prep)  # [B, M]
         grid_t = torch.as_tensor(grid, dtype=torch.float32,
                                  device=bb_ts.device)
 

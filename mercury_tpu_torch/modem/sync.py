@@ -1,7 +1,7 @@
 """Synchronization: Schmidl-Cox time sync, known-preamble matched filter,
 the coherent whole-buffer scan and pilot-lattice arbitration of the deep
 acquisition, Moose fine CFO (PyTorch port of the OFDM parts of
-`mercury_tpu.modem.sync`).
+the JAX package's `modem/sync.py`).
 
 The Schmidl-Cox window sums are prefix-sum differences (cumsum, then
 difference, as the JAX package computes them off the TPU); the
@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from mercury_tpu.core.geometry import ModeGeometry
+from mercury_tpu_torch.core.geometry import ModeGeometry
 from mercury_tpu_torch.dsp import kernels
 
 
@@ -121,12 +121,15 @@ def coherent_scan_max(seg: torch.Tensor, bank: torch.Tensor, window: int
 
 def pilot_rescore(bb_ts: torch.Tensor, cand_delay: torch.Tensor,
                   cand_fidx: torch.Tensor, bank: torch.Tensor, mf_s: int,
-                  ts_dec: int, pre_span: int) -> torch.Tensor:
+                  ts_dec: int, pre_span: int,
+                  prepared: tuple[torch.Tensor, torch.Tensor] | None = None
+                  ) -> torch.Tensor:
     """Pilot-lattice scores [B, M] of candidate frame starts: bb_ts [B, n_ts]
     base-rate TS baseband, cand_delay [B, M] interp-rate frame starts,
     cand_fidx [B, M] CFO-grid rows of bank [F, Nsymb, S_d] (pilot-only
     symbol templates at mf_d = mf_s*ts_dec rate, rotated in local symbol
-    time), pre_span the preamble length in interp samples. Each symbol is
+    time), pre_span the preamble length in interp samples, prepared the
+    bank's kernels.pilot_bank where the caller keeps it. Each symbol is
     correlated coherently, magnitudes summed over symbols; the silence floor
     is the XLA path's (mean energy of the segments scored)."""
     _, nsym, s_d = bank.shape
@@ -134,7 +137,7 @@ def pilot_rescore(bb_ts: torch.Tensor, cand_delay: torch.Tensor,
     idx0 = torch.clamp(torch.div(cand_delay + pre_span, ts_dec * mf_s,
                                  rounding_mode="floor"),
                        0, max(bb_dec.shape[-1] - nsym * s_d, 0))
-    return kernels.pilot_cand_score(bb_dec, idx0, cand_fidx, bank)
+    return kernels.pilot_cand_score(bb_dec, idx0, cand_fidx, bank, prepared)
 
 
 def bank_scores(seg: torch.Tensor, bank: torch.Tensor,

@@ -1,5 +1,5 @@
 """Transmit chain: payload bytes -> passband samples (PyTorch port of
-`mercury_tpu.modem.tx.TxChain`, OFDM modes).
+`TxChain` in the JAX package's `modem/tx.py`, OFDM modes).
 
 CRC16 append -> energy dispersal -> virtual-bit duplication -> LDPC encode ->
 parity relocation -> bit interleave -> PSK map -> time/frequency interleave ->
@@ -16,11 +16,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from mercury_tpu.core import crc as crc_mod
-from mercury_tpu.core.geometry import ModeGeometry
-from mercury_tpu.fec.tables import load_code
+from mercury_tpu_torch.convert import resolve_device
+from mercury_tpu_torch.core import crc as crc_mod
+from mercury_tpu_torch.core.geometry import ModeGeometry
 from mercury_tpu_torch.dsp import ops
 from mercury_tpu_torch.fec import ldpc
+from mercury_tpu_torch.fec.tables import load_code
 from mercury_tpu_torch.modem import psk
 
 
@@ -28,13 +29,16 @@ class TxChain(nn.Module):
     """Per-mode TX program; call transmit() on byte batches.
 
     dtype is the real working type (float32, or float64 for reference
-    parity); the complex type follows it. MFSK modes and control frames are
-    not ported yet (ROADMAP.md §1, item 9)."""
+    parity); the complex type follows it. The chain lives on the CUDA card
+    unless `device` names another (device="cpu" for the CPU; see
+    convert.resolve_device). MFSK modes and control frames are not ported
+    yet (ROADMAP.md §1, item 9)."""
 
     def __init__(self, geom: ModeGeometry, dtype: torch.dtype = torch.float32,
                  device=None, ctrl: bool = False):
         super().__init__()
         g = geom
+        device = resolve_device(device)
         if g.spec.is_mfsk or ctrl:
             raise NotImplementedError(
                 "MFSK/ROBUST modes and ctrl frames are not ported yet "
@@ -72,8 +76,7 @@ class TxChain(nn.Module):
         self.power_norm = math.sqrt(g.nfft * g.interp)
         self.amp_data = math.sqrt(0.1)
         self.amp_pre = self.amp_data * math.sqrt(2.0)
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     # ------------------------------------------------------------------
     def frame_bits(self, payload_bytes: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: (name, argument types); every entry returns cudaError_t
 _SIGNATURES = {
-    # pb, osc, taps, start, out, batch, n, n_out, stride, offset, ntaps, stream
+    # pb, osc, taps, start (or NULL: every row at 0), out, batch, n, n_out,
+    # stride, offset, ntaps, stream
     "mfd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # seg, tmpl, ce, ef, out, batch, num_a, seg_len, lp, s, n_cand, n_cols,
     # stream
@@ -37,8 +38,10 @@ _SIGNATURES = {
     # n_cols, stream
     "dmf_max_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P),
-    # bb, idx0, fidx, bank_c, et, out, batch, n_dec, m, nsym, s, stream
-    "pcs_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # bb, idx0, fidx, bank_t, et, out, batch, n_dec, row_stride, step, m, f_n,
+    # nsym, s, stream
+    "pcs_launch": (_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I,
+                   _I, _I, _I, _P),
 }
 
 

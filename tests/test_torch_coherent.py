@@ -20,6 +20,7 @@ from mercury_tpu.modem import sync as jsync
 from mercury_tpu.modem.rx import RxChain as JaxRx
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.convert import RX_BUFFERS, rx_state_from_numpy
+from mercury_tpu_torch.core.geometry import build_geometry as port_geometry
 from mercury_tpu_torch.dsp import kernels
 from mercury_tpu_torch.modem import sync
 from mercury_tpu_torch.modem.rx import RxChain
@@ -102,7 +103,7 @@ def test_topk_pooled_matches_jax_with_ties(start):
 @pytest.fixture(scope="module")
 def cfg0():
     g = build_geometry(0)
-    return g, JaxRx(g), RxChain(g)
+    return g, JaxRx(g), RxChain(port_geometry(0), device="cpu")
 
 
 def _buffer(g, esn0: float, seed: int, decoy_rows=()):
@@ -114,7 +115,7 @@ def _buffer(g, esn0: float, seed: int, decoy_rows=()):
     rng = np.random.default_rng(seed)
     payload, p1, p2 = (rng.integers(0, 256, (B, g.frame_bytes)).astype(
         np.uint8) for _ in range(3))
-    tx = TxChain(g)
+    tx = TxChain(port_geometry(g.spec.config), device="cpu")
     frame, f1, f2 = (tx.transmit(torch.as_tensor(p)).numpy()
                      for p in (payload, p1, p2))
     n_fr = frame.shape[1]
@@ -180,12 +181,12 @@ def test_state_carried_across_from_jax(cfg0):
     g, jax_rx, rx = cfg0
     state = rx_state_from_numpy(
         {name: np.asarray(getattr(jax_rx, name)) for name in RX_BUFFERS
-         if hasattr(jax_rx, name)})
+         if hasattr(jax_rx, name)}, device="cpu")
     own = rx.state_dict()
     assert "_pil_templates" in state and set(own) == set(state)
     for name, t in state.items():
         assert t.dtype == own[name].dtype and torch.equal(t, own[name]), name
-    fresh = RxChain(g)
+    fresh = RxChain(rx.geom, device="cpu")
     for t in fresh.state_dict().values():
         t.zero_()
     fresh.load_state_dict(state)

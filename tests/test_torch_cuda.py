@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from mercury_tpu.core.geometry import build_geometry
+from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.dsp import kernels
 
 
@@ -72,6 +72,69 @@ def test_mix_fir_decimate_kernel_matches_plain(cuda_device, geom):
                                         n_out=700, offset=16)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
     assert kernels.LAUNCHES["mix_fir_decimate"] == before + 4
+
+
+def _direct_fir(pb, osc, taps, stride, start, n_out, offset):
+    """The arithmetic of the direct per-output loop (one thread per output):
+    x = p*o as two float32 products, then acc = fmaf(tap_j, x, acc) for
+    j = 0..T-1, a sample outside the row skipped. Each fmaf is taken exactly
+    in float64 and rounded once to float32."""
+    b, n = pb.shape
+    xr, xi = pb * osc.real, pb * osc.imag
+    base = (start[:, None] + offset
+            + torch.arange(n_out, device=pb.device)[None] * stride)
+    acc = [torch.zeros((b, n_out), dtype=torch.float32, device=pb.device)
+           for _ in range(2)]
+    for j in range(taps.shape[0]):
+        i = base - j
+        inside = (i >= 0) & (i < n)
+        t = taps[j].double()
+        for k, x in enumerate((xr, xi)):
+            v = torch.gather(x, 1, i.clamp(0, n - 1))
+            acc[k] = torch.where(inside, (acc[k].double() + t * v.double())
+                                 .float(), acc[k])
+    return torch.complex(*acc)
+
+
+# n = 9001: 2251 outputs at stride 4, 4501 at 2, 9001 at 1, none a multiple
+# of the kernel's 1024-output tile
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("batch", [1, 300])
+def test_mix_fir_decimate_kernel_tiles_and_starts(cuda_device, geom, stride,
+                                                  batch):
+    """The tiled kernel against the plain version (atol 1e-5, rtol 1e-4) and
+    bit-equal to the direct loop's arithmetic: 'same' form, and per-row
+    starts before 0, inside, and past the row end."""
+    rng = np.random.default_rng(stride * 1000 + batch)
+    n = 9001
+    pb = torch.as_tensor(rng.standard_normal((batch, n)).astype(np.float32),
+                         device=cuda_device)
+    osc = torch.as_tensor(_osc(geom, n), device=cuda_device)
+    taps = torch.as_tensor(geom.fir_rx_data.astype(np.float32),
+                           device=cuda_device)
+    ntaps = taps.shape[0]
+    before = kernels.LAUNCHES["mix_fir_decimate"]
+    got = kernels.mix_fir_decimate(pb, osc, taps, stride)
+    want = kernels.mix_fir_decimate_ref(pb, osc, taps, stride)
+    assert got.shape == want.shape == (batch, (n - 1) // stride + 1)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    zero = torch.zeros(batch, dtype=torch.int64, device=cuda_device)
+    assert torch.equal(got, _direct_fir(pb, osc, taps, stride, zero,
+                                        got.shape[1], (ntaps - 1) // 2))
+    start = torch.as_tensor(rng.integers(-3000, n + 500, batch),
+                            device=cuda_device)
+    start[0] = -40 if batch == 1 else start[0]
+    if batch > 1:
+        start[:3] = torch.tensor([-40, n - 100, n + 37])
+    row = dict(start=start, n_out=1500, offset=ntaps - 1 - (ntaps - 1) // 2)
+    got = kernels.mix_fir_decimate(pb, osc, taps, stride, **row)
+    want = kernels.mix_fir_decimate_ref(pb, osc, taps, stride, **row)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    assert torch.equal(got, _direct_fir(pb, osc, taps, stride, **row))
+    if batch > 1:
+        assert (got[2] == 0).all()                 # wholly past the row
+    assert kernels.LAUNCHES["mix_fir_decimate"] == before + 2
 
 
 @pytest.mark.cuda
@@ -226,3 +289,90 @@ def test_pilot_cand_score_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert (got[2] == 0).all()                     # silent row
     assert (got[0] > 0).all()
+
+
+def _pilot_general(seed, b, m, n_dec, f_n, nsym, s_d, device):
+    """Rows: noise, half-silent, silent, then noise; candidates clipped at
+    both row ends and template rows clipped to the bank."""
+    rng = np.random.default_rng(seed)
+    bb = (rng.standard_normal((b, n_dec))
+          + 1j * rng.standard_normal((b, n_dec))).astype(np.complex64)
+    bb[1, n_dec // 2:] = 0.0
+    bb[2] = 0.0
+    bank = (rng.standard_normal((f_n, nsym, s_d))
+            + 1j * rng.standard_normal((f_n, nsym, s_d))).astype(np.complex64)
+    idx0 = rng.integers(0, n_dec - nsym * s_d + 1, (b, m))
+    idx0[:, 0] = -7
+    if m > 1:
+        idx0[:, 1] = n_dec + 3
+    fidx = rng.integers(0, f_n, (b, m))
+    fidx[:, -1] = f_n + 5
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in (bb, idx0, fidx, bank))
+
+
+# Nsym odd (the cluster's two blocks take 4 and 3 symbols, a warp's last
+# symbol group is single), one symbol (the second block has none), M odd
+# and above 32, S longer than a warp's stride, and CONFIG_0's M, Nsym, S
+PILOT = [dict(m=5, nsym=7, s_d=67, n_dec=3000),
+         dict(m=33, nsym=1, s_d=300, n_dec=2000),
+         dict(m=9, nsym=5, s_d=500, n_dec=6000),
+         dict(m=32, nsym=48, s_d=136, n_dec=14824)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PILOT,
+                         ids=[f"M{c['m']}-N{c['nsym']}-S{c['s_d']}"
+                              for c in PILOT])
+def test_pilot_cand_score_kernel_shapes(cuda_device, case):
+    bb, idx0, fidx, bank = _pilot_general(case["m"] + case["nsym"], 4,
+                                          case["m"], case["n_dec"], 7,
+                                          case["nsym"], case["s_d"],
+                                          cuda_device)
+    before = kernels.LAUNCHES["pilot_cand_score"]
+    got = kernels.pilot_cand_score(bb, idx0, fidx, bank)
+    prepared = kernels.pilot_cand_score(bb, idx0, fidx, bank,
+                                        kernels.pilot_bank(bank))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pilot_cand_score"] == before + 2
+    want = kernels.pilot_cand_score_ref(bb, idx0, fidx, bank)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, prepared)
+    # the rows as every other sample of a wider buffer (the receive path's
+    # decimated view), read in place
+    wide = torch.zeros((bb.shape[0], 2 * bb.shape[1]), dtype=bb.dtype,
+                       device=cuda_device)
+    wide[:, ::2] = bb
+    assert torch.equal(kernels.pilot_cand_score(wide[:, ::2], idx0, fidx,
+                                                bank), got)
+    assert (got[2] == 0).all()                     # silent row
+    assert (got[0] > 0).all() and (got[3] > 0).all()
+
+
+@pytest.mark.cuda
+def test_pilot_cand_score_kernel_bursty_row(cuda_device):
+    """tests/test_torch_pilot.py::test_bursty_row_follows_xla_floor's row,
+    decimated as sync.pilot_rescore does: seven candidates in the loud half,
+    one in a half 42 dB quieter whose symbols fall under the floor of the
+    energies scored, so it scores 0."""
+    rng = np.random.default_rng(11)
+    mf_s, ts_dec, pre_span, n_ts, m = 2, 4, 48, 6000, 8
+    base = (rng.standard_normal((5, 136))
+            + 1j * rng.standard_normal((5, 136))).astype(np.complex64)
+    t = np.arange(136)
+    bank = np.stack([base * np.exp(-1j * 2 * np.pi * f * 1e-4 * t)[None]
+                     for f in range(3)]).astype(np.complex64)
+    bb = (rng.standard_normal((1, n_ts))
+          + 1j * rng.standard_normal((1, n_ts))).astype(np.complex64)
+    bb[0, n_ts // 2:] *= np.float32(np.sqrt(6.6e-5))
+    step = mf_s * ts_dec
+    cand = (np.arange(m) * 40 * step - pre_span)[None].astype(np.int64)
+    cand[0, -1] = (n_ts // 2 + 200) * ts_dec - pre_span
+    idx0 = (cand + pre_span) // step
+    args = tuple(torch.as_tensor(x, device=cuda_device) for x in (
+        np.ascontiguousarray(bb[:, ::mf_s]), idx0, np.zeros((1, m), np.int64),
+        bank))
+    got = kernels.pilot_cand_score(*args)
+    want = kernels.pilot_cand_score_ref(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert got[0, -1] == 0.0 and (got[0, :-1] > 0).all()

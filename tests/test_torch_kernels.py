@@ -50,6 +50,7 @@ def test_mix_fir_decimate_row_starts_match_frame_extraction(cfg):
     """Per-row-start form == the JAX RxChain's data-FIR frame extraction,
     including starts clipped at both buffer edges."""
     from mercury_tpu.modem.rx import RxChain as JaxRx
+    from mercury_tpu_torch.core.geometry import build_geometry as port_geometry
     from mercury_tpu_torch.modem.rx import RxChain
 
     g = build_geometry(cfg)
@@ -60,7 +61,8 @@ def test_mix_fir_decimate_row_starts_match_frame_extraction(cfg):
     delay = np.array([0, 1234, n - frame, n], dtype=np.int64)
     want = JaxRx(g).extract_frame_decimated_pb(
         jnp.asarray(pb), jnp.asarray(delay, jnp.int32), g.nsymb)
-    got = RxChain(g).extract_frame_decimated_pb(
+    rx = RxChain(port_geometry(cfg), device="cpu")
+    got = rx.extract_frame_decimated_pb(
         torch.as_tensor(pb), torch.as_tensor(delay), g.nsymb)
     assert got.shape == want.shape == (4, frame // g.interp)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),

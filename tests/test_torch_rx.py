@@ -18,6 +18,7 @@ from mercury_tpu.core.geometry import build_geometry
 from mercury_tpu.modem.rx import RxChain as JaxRx
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.convert import RX_BUFFERS, rx_state_from_numpy
+from mercury_tpu_torch.core.geometry import build_geometry as port_geometry
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.tx import TxChain
 
@@ -31,7 +32,8 @@ def chains():
     def get(cfg):
         if cfg not in cache:
             g = build_geometry(cfg)
-            cache[cfg] = (g, JaxRx(g), RxChain(g))
+            cache[cfg] = (g, JaxRx(g),
+                          RxChain(port_geometry(cfg), device="cpu"))
         return cache[cfg]
 
     return get
@@ -40,7 +42,8 @@ def chains():
 def _buffer(g, esn0: float, seed: int):
     rng = np.random.default_rng(seed)
     payload = rng.integers(0, 256, (B, g.frame_bytes)).astype(np.uint8)
-    frames = TxChain(g).transmit(torch.as_tensor(payload)).numpy()
+    tx = TxChain(port_geometry(g.spec.config), device="cpu")
+    frames = tx.transmit(torch.as_tensor(payload)).numpy()
     n = g.nofdm * g.buffer_nsymb * g.interp
     delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
     buf = rng.standard_normal((B, n)) * sim.sigma_for_esn0(esn0)
@@ -93,12 +96,12 @@ def test_state_carried_across_from_jax(chains):
     g, jax_rx, rx = chains(9)
     state = rx_state_from_numpy(
         {name: np.asarray(getattr(jax_rx, name)) for name in RX_BUFFERS
-         if hasattr(jax_rx, name)})
+         if hasattr(jax_rx, name)}, device="cpu")
     own = rx.state_dict()
     assert set(own) == set(state)
     for name, t in state.items():
         assert t.dtype == own[name].dtype and torch.equal(t, own[name]), name
-    fresh = RxChain(g)
+    fresh = RxChain(rx.geom, device="cpu")
     for t in fresh.state_dict().values():
         t.zero_()
     fresh.load_state_dict(state)
@@ -141,4 +144,4 @@ def test_mix_and_grid_stats_match_jax(chains):
 ])
 def test_out_of_slice_options_raise(cfg, geom_kw, kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1, {item}"):
-        RxChain(build_geometry(cfg, **geom_kw), **kwargs)
+        RxChain(port_geometry(cfg, **geom_kw), device="cpu", **kwargs)

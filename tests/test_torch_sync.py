@@ -10,6 +10,7 @@ import torch
 from mercury_tpu.core.geometry import build_geometry
 from mercury_tpu.modem import sync as jsync
 from mercury_tpu_torch.channel import sim
+from mercury_tpu_torch.core.geometry import build_geometry as port_geometry
 from mercury_tpu_torch.dsp import ops
 from mercury_tpu_torch.modem import sync
 from mercury_tpu_torch.modem.rx import RxChain
@@ -19,14 +20,16 @@ from mercury_tpu_torch.modem.tx import TxChain
 @pytest.fixture(scope="module")
 def case():
     g = build_geometry(3)
+    tg = port_geometry(3)
     rng = np.random.default_rng(33)
     payload = rng.integers(0, 256, (2, g.frame_bytes)).astype(np.uint8)
-    frames = TxChain(g).transmit(torch.as_tensor(payload)).numpy()
+    frames = TxChain(tg, device="cpu").transmit(
+        torch.as_tensor(payload)).numpy()
     n = g.nofdm * g.buffer_nsymb * g.interp
     delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
     buf = rng.standard_normal((2, n)) * sim.sigma_for_esn0(3.0)
     buf[:, delay: delay + frames.shape[1]] += frames
-    rx = RxChain(g)
+    rx = RxChain(tg, device="cpu")
     pb = torch.as_tensor(buf.astype(np.float32))
     bb_ts = ops.fir_same_strided(rx.mix(pb), rx._fir_ts, g.interp)
     return g, rx, bb_ts, delay
@@ -34,7 +37,8 @@ def case():
 
 def test_schmidl_cox_metric(case):
     g, _rx, bb_ts, delay = case
-    met, cfo = sync.schmidl_cox_metric(bb_ts, g, decim=g.interp, scan=4)
+    met, cfo = sync.schmidl_cox_metric(bb_ts, _rx.geom, decim=g.interp,
+                                       scan=4)
     met_j, cfo_j = jsync.schmidl_cox_metric(jnp.asarray(bb_ts.numpy()), g,
                                             decim=g.interp, use_mm=False,
                                             scan=4)
@@ -76,7 +80,7 @@ def test_moose_cfo(case):
                                           g.nsymb)
     t = torch.arange(frame.shape[-1], dtype=torch.float32) * g.interp
     frame = frame * torch.polar(torch.ones_like(t), 2 * np.pi * 7.0 / g.fs * t)
-    f = sync.moose_cfo(frame, g, rx._pad_map)
+    f = sync.moose_cfo(frame, rx.geom, rx._pad_map)
     f_j = jsync.moose_cfo(jnp.asarray(frame.numpy()), g)
     np.testing.assert_allclose(f.numpy(), np.asarray(f_j), rtol=1e-4,
                                atol=1e-4)
