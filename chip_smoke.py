@@ -6,25 +6,33 @@
 Builds the CUDA kernels from mercury_tpu_torch/csrc (first use, into
 build/mercury_tpu_torch/), then:
   1. holds each kernel against its plain PyTorch version at the receive
-     path's shapes (batch 256) and times both with CUDA events, the wrapper
+     paths' shapes (batch 256) and times both with CUDA events, the wrapper
      call and the kernel alone (a raw launch on prepared operands), beside
      the kernel's bound: the larger of its compulsory bytes over the H100's
      HBM rate and its operations over the peak rate of their type, reckoned
      from this run's inputs. mix_fir_decimate also gets a library
      yardstick: cuDNN conv1d of the real passband with pre-rotated taps,
-     then one complex rotation at the output positions;
+     then one complex rotation at the output positions. mix_fir_decimate
+     is held at the buffer and frame sizes of every main path (CONFIG_3
+     and 0, 9, 16, 13, 11) and deep_mf_score also at the refine shapes of
+     CONFIG_11 (three preamble symbols), 13 (two) and 16 (one);
   2. drives the port's receive paths, TxChain.transmit -> awgn_passband ->
-     RxChain.receive, with batch 256 at Es/N0 12 dB: CONFIG_3 (BPSK 4/16,
-     noncoherent deep sync), CONFIG_9 (QPSK 8/16) and CONFIG_0 (BPSK 1/16,
-     coherent deep acquisition). Each path runs with the launch counts set
-     to 0 just before it and read just after: every row must decode to the
-     payload sent, every kernel of the path must have been launched, and
-     the first rows must agree with the CPU run of the same buffer (plain
-     versions). CONFIG_0 runs again at -4 dB (lower until a row's first
-     decode fails), where the CRC-gated rescue decode must run and 7/8 of
-     the rows must decode;
-  3. decodes the reference's CONFIG_0, CONFIG_3 and CONFIG_9 capture
-     buffers (tests/golden) to their reference bytes.
+     RxChain.receive, with batch 256: CONFIG_3 (BPSK 4/16, noncoherent deep
+     sync), CONFIG_9 (QPSK 8/16) and CONFIG_0 (BPSK 1/16, coherent deep
+     acquisition) at Es/N0 12 dB; CONFIG_16 (32QAM 14/16: DD, BICM-ID, MER
+     SNR) at 31 dB, CONFIG_13 (16QAM 8/16) at 17 dB and CONFIG_11 (8PSK
+     8/16) at 14 dB. Each path runs with the launch counts set to 0 just
+     before it and read just after: every row must decode to the payload
+     sent, every kernel of the path must have been launched, and the first
+     rows must agree with the CPU run of the same buffer (plain versions).
+     CONFIG_0 runs again at -4 dB (lower until a row's first decode fails),
+     where the CRC-gated rescue decode must run and 7/8 of the rows must
+     decode. CONFIG_16 runs again near its threshold (21 dB, stepping down
+     until a first decode fails), where BICM-ID and the decision-directed
+     pass must run on the card and recover at least one row;
+  3. decodes the reference's CONFIG_0, 3 and 9 capture buffers, those of
+     CONFIG_10-16 at both pilot densities, and CONFIG_15/16's with the
+     zero-forcing estimator (tests/golden), to their reference bytes.
 Any failure raises (non-zero exit). Without a CUDA device it exits non-zero
 before printing a result. The line before the last lists the kernels
 (launches on the main paths, error, times, bound, library time); the last
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 
 from mercury_tpu_torch.core.geometry import build_geometry
+from mercury_tpu_torch.core.modes import HIGH_DENSITY, LOW_DENSITY
 from mercury_tpu_torch import native
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.dsp import kernels
@@ -49,7 +58,9 @@ from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.tx import TxChain
 
 BATCH = 256
-ESN0_DB = 12.0
+# Es/N0 (dB) of each main path: 12 dB up to QPSK, then tests/test_rx.py:64's
+# clean points
+ESN0_DB = {3: 12.0, 9: 12.0, 0: 12.0, 16: 31.0, 13: 17.0, 11: 14.0}
 GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
 KERNELS = {
     "mix_fir_decimate": ("mercury_tpu_torch/csrc/mix_fir_decimate.cu",
@@ -64,7 +75,10 @@ KERNELS = {
 # the kernels each receive path must launch
 PATH_KERNELS = {3: ("mix_fir_decimate", "deep_mf_score"),
                 9: ("mix_fir_decimate", "deep_mf_score"),
-                0: ("mix_fir_decimate", "deep_mf_max", "pilot_cand_score")}
+                0: ("mix_fir_decimate", "deep_mf_max", "pilot_cand_score"),
+                16: ("mix_fir_decimate", "deep_mf_score"),
+                13: ("mix_fir_decimate", "deep_mf_score"),
+                11: ("mix_fir_decimate", "deep_mf_score")}
 # the matched-filter kernels' tensor-core arithmetic
 MF_FORM = ("TF32 one pass: wgmma m64nNk8 tf32 x tf32 -> f32 (A from "
            "registers, B from shared memory), operands rounded with cvt.rna")
@@ -207,87 +221,107 @@ def fir_library(pb, _osc, taps, stride, g):
     return run
 
 
-def check_mix_fir_decimate(rx: RxChain, gen: torch.Generator) -> dict:
-    """TS form [256, 118592] stride 4 and the per-row-start data-FIR form
-    (CONFIG_3 shapes) against the plain version: max abs error <= 1e-4.
-    Timed through the wrapper and as the kernel alone, beside the bound and
-    the conv1d yardstick (which must agree within 1e-4)."""
-    g = rx.geom
-    n = g.nofdm * g.buffer_nsymb * g.interp
-    dev = rx.device
+def check_mix_fir_decimate(chains: dict, gen: torch.Generator) -> dict:
+    """For each main path's chain (label -> chain; CONFIG_3 first, whose
+    numbers go into the kernels line): the TS form over the whole buffer,
+    stride 4, and the per-row-start data-FIR form of that mode's frame,
+    against the plain version: max abs error <= 1e-4. Each timed through
+    the wrapper and as the kernel alone, beside its bound; the TS form also
+    beside the conv1d yardstick (which must agree within 1e-4)."""
     lib = native.load_library()
-    pb = 0.3 * torch.randn((BATCH, n), generator=gen, device=dev)
-    osc = rx._osc_const(n)
-    ts = (pb, osc, rx._fir_ts, g.interp)
-    err_ts = (kernels.mix_fir_decimate(*ts)
-              - kernels.mix_fir_decimate_ref(*ts)).abs().max().item()
-    ntaps = rx._fir_data.shape[0]
-    frame = g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
-    start = torch.randint(0, n - frame, (BATCH,), generator=gen, device=dev)
-    row = dict(start=start, n_out=frame // g.interp,
-               offset=ntaps - 1 - (ntaps - 1) // 2)
-    data = (pb, osc, rx._fir_data, g.interp)
-    err_data = (kernels.mix_fir_decimate(*data, **row)
-                - kernels.mix_fir_decimate_ref(*data, **row)).abs().max().item()
-    print(f"mix_fir_decimate: max abs err TS {err_ts:.3e}, data FIR "
-          f"{err_data:.3e} (limit 1e-4)")
-    assert err_ts <= 1e-4 and err_data <= 1e-4
-    library = fir_library(*ts, g)
-    lib_err = (library() - kernels.mix_fir_decimate(*ts)).abs().max().item()
-    assert lib_err <= 1e-4, f"conv1d yardstick differs by {lib_err}"
-    n_ts = (n - 1) // g.interp + 1
-    zeros = torch.zeros(BATCH, dtype=torch.int64, device=dev)
-    out_ts = torch.empty((BATCH, n_ts), dtype=torch.complex64, device=dev)
-    out_data = torch.empty((BATCH, row["n_out"]), dtype=torch.complex64,
-                           device=dev)
+    out = {"max_abs_err": 0.0, "paths": {}}
+    for label, rx in chains.items():
+        g = rx.geom
+        n = g.nofdm * g.buffer_nsymb * g.interp
+        dev = rx.device
+        pb = 0.3 * torch.randn((BATCH, n), generator=gen, device=dev)
+        osc = rx._osc_const(n)
+        ts = (pb, osc, rx._fir_ts, g.interp)
+        err_ts = (kernels.mix_fir_decimate(*ts)
+                  - kernels.mix_fir_decimate_ref(*ts)).abs().max().item()
+        ntaps = rx._fir_data.shape[0]
+        frame = g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
+        start = torch.randint(0, n - frame, (BATCH,), generator=gen,
+                              device=dev)
+        row = dict(start=start, n_out=frame // g.interp,
+                   offset=ntaps - 1 - (ntaps - 1) // 2)
+        data = (pb, osc, rx._fir_data, g.interp)
+        err_data = (kernels.mix_fir_decimate(*data, **row)
+                    - kernels.mix_fir_decimate_ref(*data, **row)
+                    ).abs().max().item()
+        print(f"mix_fir_decimate {label}: max abs err TS {err_ts:.3e}, data "
+              f"FIR {err_data:.3e} (limit 1e-4)")
+        assert err_ts <= 1e-4 and err_data <= 1e-4, label
+        library = fir_library(*ts, g)
+        lib_err = (library() - kernels.mix_fir_decimate(*ts)).abs().max().item()
+        assert lib_err <= 1e-4, f"{label}: conv1d yardstick differs by {lib_err}"
+        n_ts = (n - 1) // g.interp + 1
+        zeros = torch.zeros(BATCH, dtype=torch.int64, device=dev)
+        out_ts = torch.empty((BATCH, n_ts), dtype=torch.complex64, device=dev)
+        out_data = torch.empty((BATCH, row["n_out"]), dtype=torch.complex64,
+                               device=dev)
 
-    def raw(taps, st, out, n_out, offset):      # st None: every row at 0
-        return lambda: lib.mfd_launch(
-            pb.data_ptr(), osc.data_ptr(), taps.data_ptr(),
-            None if st is None else st.data_ptr(), out.data_ptr(), BATCH, n,
-            n_out, g.interp, offset, ntaps, kernels._stream(pb))
+        def raw(taps, st, dst, n_out, offset):  # st None: every row at 0
+            return lambda: lib.mfd_launch(
+                pb.data_ptr(), osc.data_ptr(), taps.data_ptr(),
+                None if st is None else st.data_ptr(), dst.data_ptr(), BATCH,
+                n, n_out, g.interp, offset, ntaps, kernels._stream(pb))
 
-    out = {"max_abs_err": max(err_ts, err_data),
-           "ms": cuda_ms(lambda: kernels.mix_fir_decimate(*ts)),
-           "kernel_ms": raw_ms(raw(rx._fir_ts, None, out_ts, n_ts,
-                                   (ntaps - 1) // 2)),
-           "plain_ms": cuda_ms(lambda: kernels.mix_fir_decimate_ref(*ts)),
-           "library_ms": cuda_ms(library)}
-    out.update(fir_bound(BATCH, n, zeros, n_ts, g.interp, (ntaps - 1) // 2,
-                         ntaps))
-    data_bound = fir_bound(BATCH, n, start, row["n_out"], g.interp,
-                           row["offset"], ntaps)
-    out["data_ms"] = cuda_ms(lambda: kernels.mix_fir_decimate(*data, **row))
-    out["data_kernel_ms"] = raw_ms(raw(rx._fir_data, start, out_data,
-                                       row["n_out"], row["offset"]))
-    out["data_plain_ms"] = cuda_ms(
-        lambda: kernels.mix_fir_decimate_ref(*data, **row))
-    out["data_bound_ms"] = data_bound["bound_ms"]
-    print(f"mix_fir_decimate TS [{BATCH},{n}] s4: wrapper {out['ms']:.4f} "
-          f"ms, kernel alone {out['kernel_ms']:.4f} ms, plain "
-          f"{out['plain_ms']:.4f} ms; {bound_text(out, out['kernel_ms'])}; "
-          f"library (two calls: cuDNN conv1d [{BATCH},1,{n}] x [2,1,{ntaps}] "
-          f"stride {g.interp}, then torch.complex * rotation) "
-          f"{out['library_ms']:.4f} ms, agrees within {lib_err:.3e}")
-    print(f"mix_fir_decimate data FIR -> [{BATCH},{row['n_out']}] at per-row "
-          f"starts: wrapper {out['data_ms']:.4f} ms, kernel alone "
-          f"{out['data_kernel_ms']:.4f} ms, plain {out['data_plain_ms']:.4f} "
-          f"ms; {bound_text(data_bound, out['data_kernel_ms'])}; library: "
-          f"none (per-row starts)")
+        st = {"max_abs_err": max(err_ts, err_data), "n_ts": n_ts,
+              "n_data": row["n_out"],
+              "ms": cuda_ms(lambda: kernels.mix_fir_decimate(*ts)),
+              "kernel_ms": raw_ms(raw(rx._fir_ts, None, out_ts, n_ts,
+                                      (ntaps - 1) // 2)),
+              "plain_ms": cuda_ms(lambda: kernels.mix_fir_decimate_ref(*ts)),
+              "library_ms": cuda_ms(library)}
+        st.update(fir_bound(BATCH, n, zeros, n_ts, g.interp, (ntaps - 1) // 2,
+                            ntaps))
+        data_bound = fir_bound(BATCH, n, start, row["n_out"], g.interp,
+                               row["offset"], ntaps)
+        st["data_ms"] = cuda_ms(lambda: kernels.mix_fir_decimate(*data, **row))
+        st["data_kernel_ms"] = raw_ms(raw(rx._fir_data, start, out_data,
+                                          row["n_out"], row["offset"]))
+        st["data_plain_ms"] = cuda_ms(
+            lambda: kernels.mix_fir_decimate_ref(*data, **row))
+        st["data_bound_ms"] = data_bound["bound_ms"]
+        print(f"mix_fir_decimate {label} TS [{BATCH},{n}] s4 -> "
+              f"[{BATCH},{n_ts}]: wrapper {st['ms']:.4f} ms, kernel alone "
+              f"{st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.4f} ms; "
+              f"{bound_text(st, st['kernel_ms'])}; library (two calls: cuDNN "
+              f"conv1d [{BATCH},1,{n}] x [2,1,{ntaps}] stride {g.interp}, "
+              f"then torch.complex * rotation) {st['library_ms']:.4f} ms, "
+              f"agrees within {lib_err:.3e}")
+        print(f"mix_fir_decimate {label} data FIR -> [{BATCH},{row['n_out']}] "
+              f"at per-row starts: wrapper {st['data_ms']:.4f} ms, kernel "
+              f"alone {st['data_kernel_ms']:.4f} ms, plain "
+              f"{st['data_plain_ms']:.4f} ms; "
+              f"{bound_text(data_bound, st['data_kernel_ms'])}; library: "
+              f"none (per-row starts)")
+        if not out["paths"]:
+            out.update(st)
+        out["max_abs_err"] = max(out["max_abs_err"], st["max_abs_err"])
+        out["paths"][label] = st
     return out
 
 
-def check_deep_mf_score(rx: RxChain, gen: torch.Generator) -> dict:
+def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
+                        refine_only: dict) -> dict:
     """Whole-buffer scan [256,14824]x[9,4,136] w=7140 and per-candidate
-    refine [768,1088]x[3,4,136] w=272 with planted peaks: argmax equal on
-    every planted row, scores within rtol 1e-3 (atol 1e-3)."""
+    refine [768,1088]x[3,4,136] w=272 (CONFIG_3, and CONFIG_9's refine),
+    and the refine of each chain in refine_only (label -> chain: CONFIG_11
+    [768,952]x[3,3,136], CONFIG_13 [768,816]x[3,2,136], CONFIG_16
+    [768,680]x[3,1,136]), with planted peaks: argmax equal on every planted
+    row, scores within rtol 1e-3 (atol 1e-3)."""
     dev = rx.device
-    tmpl = rx._mf_templates[:, ::8]
-    lp, s = tmpl.shape
+    aliases = (0.0, 93.75, -93.75)
     out = {"max_abs_err": 0.0}
-    for label, rows, freqs, window in (
-            ("scan", BATCH, np.arange(-4, 5) * 30.0, 7140),
-            ("refine", 3 * BATCH, (0.0, 93.75, -93.75), 272)):
+    for label, chain, rows, freqs, window in (
+            ("scan", rx, BATCH, np.arange(-4, 5) * 30.0, 7140),
+            ("refine", rx, 3 * BATCH, aliases, 272),
+            *((f"refine {name}", c, 3 * BATCH, aliases, 272)
+              for name, c in refine_only.items())):
+        tmpl = chain._mf_templates[:, ::8]
+        lp, s = tmpl.shape
         bank = rx._rotated_bank(tmpl, freqs, 8)
         seg_len = 2 * window + lp * s
         seg = torch.complex(torch.randn((rows, seg_len), generator=gen,
@@ -318,7 +352,7 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator) -> dict:
         bd = mf_bound(rows, seg_len, bank.shape, 2 * window + 1, 4)
         if label == "scan":
             out.update(bd, ms=k_ms, kernel_ms=raw, plain_ms=p_ms)
-        else:
+        elif label == "refine":
             out.update(refine_ms=k_ms, refine_kernel_ms=raw,
                        refine_plain_ms=p_ms, refine_bound_ms=bd["bound_ms"])
         print(f"deep_mf_score {label} [{rows},{seg_len}]x{list(bank.shape)} "
@@ -459,7 +493,7 @@ def drive_main_path(cfg: int, dev: torch.device) -> dict:
     rx = RxChain(g, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    buf, payload, delay = make_buffer(g, dev, ESN0_DB, cfg)
+    buf, payload, delay = make_buffer(g, dev, ESN0_DB[cfg], cfg)
     torch.cuda.synchronize()
     t_tx = time.perf_counter() - t0
     times = []
@@ -488,7 +522,9 @@ def drive_main_path(cfg: int, dev: torch.device) -> dict:
     t_rx = min(times[1:])
     buf_len = buf.shape[1]
     msps = BATCH * buf_len / t_rx / 1e6
-    print(f"CONFIG_{cfg}: {n_ok}/{BATCH} decoded, payloads equal; transmit + "
+    print(f"CONFIG_{cfg} at {ESN0_DB[cfg]} dB: {n_ok}/{BATCH} decoded, "
+          f"payloads equal, snr mean {res.snr_db.mean().item():.3f} dB; "
+          f"transmit + "
           f"channel {t_tx * 1e3:.2f} ms; receive first {times[0] * 1e3:.2f} "
           f"ms, steady {t_rx * 1e3:.2f} ms (min of {len(times) - 1}) = "
           f"{msps:.3f} Msamples/s; iters mean "
@@ -534,20 +570,69 @@ def drive_rescue(dev: torch.device) -> dict:
     return {"launches": launches}
 
 
-def decode_golden(cfg: int, dev: torch.device) -> None:
-    rx = RxChain(build_geometry(cfg), device=dev)
-    res = rx.receive(torch.as_tensor(golden(f"cfg{cfg}_rx_buffer")[None]))
-    want = torch.as_tensor(golden(f"cfg{cfg}_rx_bytes").astype(np.uint8))
-    assert bool(res.crc_ok[0]), f"cfg{cfg}_rx_buffer: CRC failed"
-    assert torch.equal(res.payload[0].cpu(), want), f"cfg{cfg}: bytes differ"
-    print(f"golden cfg{cfg}_rx_buffer: decoded to the reference bytes "
-          f"(snr {res.snr_db[0].item():.2f} dB)")
+def drive_near_threshold(dev: torch.device) -> dict:
+    """CONFIG_16 at batch 256 at 21 dB, stepping down until some row's
+    first decode fails (a chain with DD and BICM-ID off) and, with the
+    defaults, BICM-ID and the DD pass both run: at least one row must be
+    recovered by them, and every row that decodes carries its payload."""
+    g = build_geometry(16)
+    rx = RxChain(g, device=dev)
+    plain = RxChain(g, device=dev, dd=False, bicm_iters=0)
+    for esn0 in (21.0, 20.5, 20.0, 19.5, 19.0):
+        buf, payload, _delay = make_buffer(g, dev, esn0, 160)
+        first_ok = plain.receive(buf).crc_ok
+        rx.reset_recovery()
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = rx.receive(buf)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+        rec = {k: v // 2 for k, v in rx.recovery.items()}
+        recovered = int((res.crc_ok & ~first_ok).sum())
+        if rec["bicm_rows"] and rec["dd_rows"] and recovered:
+            break
+        print(f"CONFIG_16 at {esn0} dB: {int((~first_ok).sum())} first "
+              f"decodes failed, recovery {rec}, recovered {recovered}; "
+              f"going lower")
+    assert rec["bicm_rows"] and rec["dd_rows"] and recovered, (
+        "CONFIG_16: BICM-ID and DD did not both run and recover a row")
+    ok = res.crc_ok
+    assert torch.equal(res.payload[ok], payload[ok])
+    assert not bool((first_ok & ~ok).any()), "a first decode was lost"
+    assert all(launches[k] > 0 for k in PATH_KERNELS[16]), launches
+    print(f"CONFIG_16 at {esn0} dB: {int(ok.sum())}/{BATCH} decoded, "
+          f"payloads equal; first decode failed on "
+          f"{int((~first_ok).sum())} rows, BICM-ID re-decoded "
+          f"{rec['bicm_rows']} rows and DD {rec['dd_rows']} (a receive, "
+          f"summed over passes), recovering {recovered}; receive "
+          f"{times[0] * 1e3:.2f} and {times[1] * 1e3:.2f} ms; iters mean "
+          f"{res.iters.double().mean().item():.3f}; launches {launches} "
+          f"over 2 receives")
+    return {"launches": launches, "receive_ms": min(times) * 1e3,
+            "esn0": esn0}
+
+
+def decode_golden(cfg: int, dev: torch.device, density: int = HIGH_DENSITY,
+                  estimator: str = "auto") -> None:
+    rx = RxChain(build_geometry(cfg, density, estimator=estimator),
+                 device=dev)
+    tag = f"cfg{cfg}ld" if density == LOW_DENSITY else f"cfg{cfg}"
+    res = rx.receive(torch.as_tensor(golden(f"{tag}_rx_buffer")[None]))
+    want = torch.as_tensor(golden(f"{tag}_rx_bytes").astype(np.uint8))
+    assert bool(res.crc_ok[0]), f"{tag}_rx_buffer: CRC failed"
+    assert torch.equal(res.payload[0].cpu(), want), f"{tag}: bytes differ"
+    print(f"golden {tag}_rx_buffer ({estimator} estimator): decoded to the "
+          f"reference bytes (snr {res.snr_db[0].item():.2f} dB)")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -562,23 +647,38 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (build at first use)")
 
     dev = torch.device("cuda")
-    rx3 = RxChain(build_geometry(3), device=dev)
+    # every main path's chain: CONFIG_0 shares CONFIG_3's buffer and frame
+    # sizes, the others each have their own
+    chains = {f"CONFIG_{cfg}": RxChain(build_geometry(cfg), device=dev)
+              for cfg in (3, 9, 16, 13, 11)}
+    rx3 = chains["CONFIG_3"]
     rx0 = RxChain(build_geometry(0), device=dev)
+    refine_only = {k: chains[k] for k in ("CONFIG_11", "CONFIG_13",
+                                          "CONFIG_16")}
     gen = torch.Generator(device=dev).manual_seed(1234)
-    stats = {"mix_fir_decimate": check_mix_fir_decimate(rx3, gen),
-             "deep_mf_score": check_deep_mf_score(rx3, gen),
+    stats = {"mix_fir_decimate": check_mix_fir_decimate(chains, gen),
+             "deep_mf_score": check_deep_mf_score(rx3, gen, refine_only),
              "deep_mf_max": check_deep_mf_max(rx0, gen),
              "pilot_cand_score": check_pilot_cand_score(rx0, gen)}
-    del rx0, rx3
+    del rx0, rx3, refine_only, chains
     torch.cuda.empty_cache()
 
     # each path from counts of 0, read just after it; the kernels line
     # reports each kernel's launches summed over the paths
-    runs = [drive_main_path(cfg, dev)["launches"] for cfg in (3, 9, 0)]
+    runs = [drive_main_path(cfg, dev)["launches"]
+            for cfg in (3, 9, 0, 16, 13, 11)]
     runs.append(drive_rescue(dev)["launches"])
+    runs.append(drive_near_threshold(dev)["launches"])
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     for cfg in (0, 3, 9):
         decode_golden(cfg, dev)
+    for cfg in range(10, 17):
+        for density in (HIGH_DENSITY, LOW_DENSITY):
+            decode_golden(cfg, dev, density)
+    for cfg in (15, 16):                # zero-forcing, as the reference
+        decode_golden(cfg, dev, estimator="reference")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

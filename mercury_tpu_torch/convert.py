@@ -26,11 +26,13 @@ RX_BUFFERS = {
     "_mf_templates": "complex", "_pil_templates": "complex",
     "_pilot_seq": "complex", "_const": "complex",
     "_pil_dft_op": "complex",
-    "_est_op": "real", "_est_pil_op": "real",
+    "_est_op": "real", "_est_pil_op": "real", "_loo_op": "real",
+    "_dd_box_s": "real", "_dd_box_c": "real",
     "_pil_bins": "real", "_cell_bins": "real",
     "_crc_a": "real", "_crc_c0": "index",
     "_pad_map": "index", "_pilot_cells": "index", "_data_cells": "index",
     "_pil_slot": "index", "_tf_iperm": "index", "_bit_iperm": "index",
+    "_tf_perm": "index", "_bit_perm": "index", "_dd_src": "index",
     "_dispersal": "index",
     "_ramp_a": "index", "_ramp_b": "index",
     "_ramp2_a": "index", "_ramp2_b": "index",

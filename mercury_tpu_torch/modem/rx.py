@@ -1,5 +1,6 @@
 """Receive chain: passband capture buffer -> decoded payload (PyTorch port of
-the OFDM path of `RxChain` in the JAX package's `modem/rx.py`).
+the OFDM path of `RxChain` in the JAX package's `modem/rx.py`, CONFIG_0-16 at
+both pilot densities).
 
 Stages, in order: mixer + strided time-sync FIR (CUDA kernel
 `mix_fir_decimate`), Schmidl-Cox top-K candidates, then the delay and coarse
@@ -10,8 +11,14 @@ kernel `deep_mf_score`); or, on CONFIG_0, the coherent whole-buffer scan
 (`pilot_cand_score`). Then frame extraction through the data FIR
 (`mix_fir_decimate` with per-row starts), Moose CFO and the pilot-variance
 pick among CFO hypotheses, FFT demod, ramp-aware LS channel estimate, max-log
-demap, layered LDPC and the CRC16 check; on CONFIG_0 a batch with a failed
-row is decoded once more at the runner-up candidate.
+demap, LDPC and the CRC16 check; on CONFIG_0 a batch with a failed row is
+decoded once more at the runner-up candidate. The zero-forcing estimator
+(estimator="reference" on CONFIG_15/16) picks its CFO hypothesis by the
+hard-decision error of a full grid each. Rows whose first LDPC decode fails
+can be re-decoded by BICM-ID (decoder extrinsics as priors of a log-MAP
+demapper; auto on 32QAM) and by decision-directed re-estimation (the decoded
+codeword as pilots on every cell; auto on 8PSK/16QAM/32QAM with the LS
+estimator). QAM modes report the SNR from the re-encoded decisions (MER).
 
 JAX's jit/vmap/lax control flow becomes eager code over a written-out batch
 axis. Float32 matmuls run at full precision (no TF32) inside `receive`.
@@ -31,16 +38,18 @@ from torch import nn
 from mercury_tpu_torch.convert import resolve_device, rx_state_from_numpy
 from mercury_tpu_torch.core import crc as crc_mod
 from mercury_tpu_torch.core import hostdsp
-from mercury_tpu_torch.core.geometry import ModeGeometry
+from mercury_tpu_torch.core.geometry import LS_WINDOW, ModeGeometry
 from mercury_tpu_torch.core.modes import ZERO_FORCE
 from mercury_tpu_torch.dsp import kernels, ops
-from mercury_tpu_torch.fec.ldpc import LayeredDecoder
+from mercury_tpu_torch.fec import ldpc
+from mercury_tpu_torch.fec.tables import load_code
 from mercury_tpu_torch.modem import psk, sync
 
 PILOT_BOOST = 1.33
 DEEP_GRID_HZ = 30.0      # whole-buffer scan CFO grid ("pruned" profile)
 DEEP_COH_GRID_HZ = 4.0   # coherent whole-buffer scan CFO grid (CONFIG_0)
 DEEP_PIL_TOPM = 32       # coherent-scan nominees the pilot lattice re-scores
+LDPC_ALGOS = ("spa", "minsum", "layered", "layered-minsum")
 
 
 @dataclass
@@ -56,25 +65,85 @@ class RxResult:
     mean_h: torch.Tensor        # [B] float32 mean |H| at the pilots
 
 
-def host_constants(geom: ModeGeometry, deep_sync: bool
+def host_constants(geom: ModeGeometry, deep_sync: bool, dd: bool = False,
+                   dd_window: tuple[int, int] = (LS_WINDOW, LS_WINDOW)
                    ) -> tuple[dict[str, np.ndarray], dict]:
-    """The receive constants of an OFDM LS-estimator mode, built on the host
-    exactly as the JAX RxChain builds them: (arrays by buffer name, scalars
-    of the ramp-aware LS estimator). The pilot-only symbol waveforms exist
-    with deep sync only, as in the JAX chain."""
+    """The receive constants of an OFDM mode, built on the host exactly as
+    the JAX RxChain builds them: (arrays by buffer name, scalars of the
+    channel estimator). The LS estimator has the timing-ramp pairs, the
+    zero-forcing one its leave-one-out pilot smoother; the pilot-only symbol
+    waveforms exist with deep sync only and the decision-directed constants
+    with dd only, as in the JAX chain."""
     g = geom
     pilot_cells = np.asarray(g.pilot_cells)
     arrays = {
         "_fir_ts": g.fir_rx_ts, "_fir_data": g.fir_rx_data,
         "_pad_map": g.pad_map, "_bit_iperm": g.bit_iperm,
         "_tf_iperm": g.tf_iperm, "_data_cells": g.data_cells,
+        "_bit_perm": g.bit_perm, "_tf_perm": g.tf_perm,
         "_pilot_cells": pilot_cells,
         "_dispersal": g.dispersal[: g.n_real],
         "_pilot_seq": np.asarray(g.pilot_seq, np.complex64),
         "_est_op": g.est_op, "_const": np.asarray(g.constellation, np.complex64),
     }
-    # ramp-aware LS: same-symbol carrier-adjacent pilot pairs give the
-    # timing-ramp slope; signed FFT bins keep the ramp continuous mid-band
+    if g.estimator == ZERO_FORCE:
+        arrays["_loo_op"], loo_scale = _loo_operator(g)
+        scalars = {"loo_scale": loo_scale}
+    else:
+        scalars = _ramp_pairs(g, arrays)
+    if dd:
+        arrays.update(_dd_constants(g, dd_window))
+    _sync_constants(g, deep_sync, arrays)
+    a, c0 = crc_mod.crc_affine(g.frame_bytes + 2)
+    arrays["_crc_a"] = a.astype(np.float32)
+    arrays["_crc_c0"] = c0
+    return arrays, scalars
+
+
+def _loo_operator(g: ModeGeometry) -> tuple[np.ndarray, float]:
+    """The zero-forcing noise estimate's leave-one-out pilot smoother: each
+    pilot's channel predicted as the mean of its k = 4 nearest pilots on
+    the (symbol, carrier) lattice (the ZF estimate passes exactly through
+    the pilots, so only this residual measures noise), and the k/(k+1)
+    correction for the prediction's own noise."""
+    k_nn = 4
+    s_pil = (g.pilot_cells // g.nc).astype(np.float64)
+    c_pil = (g.pilot_cells % g.nc).astype(np.float64)
+    npil = len(g.pilot_cells)
+    d2 = ((s_pil[:, None] - s_pil[None, :]) ** 2
+          + (c_pil[:, None] - c_pil[None, :]) ** 2)
+    np.fill_diagonal(d2, np.inf)
+    s_loo = np.zeros((npil, npil), np.float64)
+    for i in range(npil):
+        s_loo[i, np.argsort(d2[i])[:k_nn]] = 1.0 / k_nn
+    return s_loo.astype(np.float32), k_nn / (k_nn + 1.0)
+
+
+def _dd_constants(g: ModeGeometry, dd_window: tuple[int, int]
+                  ) -> dict[str, np.ndarray]:
+    """Decision-directed constants: the gather map placing the known pilots
+    and the re-encoded symbol decisions (tf-deinterleaved order) on the flat
+    grid (unused cells -> a trailing zero slot), and the 0/1 box-window
+    matrices of the separable (symbol x carrier) smoothing."""
+    npil, ndata = len(g.pilot_cells), len(g.data_cells)
+    src = np.full(g.nsymb * g.nc, npil + ndata, np.int64)
+    src[np.asarray(g.pilot_cells)] = np.arange(npil)
+    src[np.asarray(g.data_cells)[np.asarray(g.tf_iperm)]] = (
+        npil + np.arange(ndata))
+    half_s, half_c = dd_window[0] // 2, dd_window[1] // 2
+    idx_s, idx_c = np.arange(g.nsymb), np.arange(g.nc)
+    return {"_dd_src": src,
+            "_dd_box_s": (np.abs(idx_s[:, None] - idx_s[None, :]) <= half_s
+                          ).astype(np.float32),
+            "_dd_box_c": (np.abs(idx_c[:, None] - idx_c[None, :]) <= half_c
+                          ).astype(np.float32)}
+
+
+def _ramp_pairs(g: ModeGeometry, arrays: dict) -> dict:
+    """The ramp-aware LS estimator's pilot pairs (into arrays) and scalars:
+    same-symbol carrier-adjacent pilot pairs give the timing-ramp slope;
+    signed FFT bins keep the ramp continuous mid-band."""
+    pilot_cells = np.asarray(g.pilot_cells)
     s_of_r = pilot_cells // g.nc
     c_of_r = pilot_cells % g.nc
     pm = np.asarray(g.pad_map).astype(np.float64)
@@ -119,6 +188,12 @@ def host_constants(geom: ModeGeometry, deep_sync: bool
     arrays["_pil_bins"] = np.asarray(bins, np.float32)
     arrays["_cell_bins"] = pm_signed[
         np.arange(g.nsymb * g.nc) % g.nc].astype(np.float32)
+    return scalars
+
+
+def _sync_constants(g: ModeGeometry, deep_sync: bool, arrays: dict) -> None:
+    """The CFO-hypothesis and matched-filter constants (into arrays)."""
+    pilot_cells = np.asarray(g.pilot_cells)
     # CFO-hypothesis selection: per-symbol partial DFT of the pilot bins,
     # slot map back to pilot_cells order, pilot rows of the LS operator
     s_of = pilot_cells // g.nc
@@ -159,10 +234,6 @@ def host_constants(geom: ModeGeometry, deep_sync: bool
         tp = hostdsp.linear_interp_x4(td_p, g.interp)
         arrays["_pil_templates"] = np.asarray(
             tp.reshape(g.nsymb, g.nofdm * g.interp), np.complex64)
-    a, c0 = crc_mod.crc_affine(g.frame_bytes + 2)
-    arrays["_crc_a"] = a.astype(np.float32)
-    arrays["_crc_c0"] = c0
-    return arrays, scalars
 
 
 def _cis(theta: torch.Tensor) -> torch.Tensor:
@@ -182,23 +253,33 @@ def _full_fp32_matmul():
         torch.set_float32_matmul_precision(prev)
 
 
-def _roadmap(item: int, what: str) -> NotImplementedError:
+def _roadmap(item: int | str, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to mercury_tpu_torch yet (ROADMAP.md §1, "
         f"item {item})")
 
 
 class RxChain(nn.Module):
-    """Per-mode RX program for the OFDM modes with the LS estimator.
+    """Per-mode RX program for the OFDM modes (CONFIG_0-16).
 
     Options as in the JAX RxChain, with its default "wide" acquisition
     profile: the 93.75 Hz coarse-CFO alias is arbitrated by a 3-way
-    matched-filter vote and 4 CFO hypotheses (cfo_range="narrow" has no
-    caller and is not ported). deep_sync (auto: CONFIG_0-4) adds the
-    whole-buffer known-preamble scan: noncoherent, or with deep_coherent
-    (auto: CONFIG_0) the coherent scan, pilot-lattice arbitration and the
-    CRC-gated rescue decode. Options and modes outside this port raise
-    NotImplementedError naming their ROADMAP item.
+    matched-filter vote and 4 CFO hypotheses. deep_sync (auto: CONFIG_0-4)
+    adds the whole-buffer known-preamble scan: noncoherent, or with
+    deep_coherent (auto: CONFIG_0) the coherent scan, pilot-lattice
+    arbitration and the CRC-gated rescue decode.
+
+    ldpc_algo: "layered" (SPA) or "layered-minsum" (the layered schedule),
+    "spa" or "minsum" (flooding). llr_scale: the demapper's LLR calibration
+    (None: 0.85 at rate 1/16, else 0.9). dd: decision-directed
+    re-estimation of the rows whose first decode failed (None: on for 8+
+    point constellations with the LS estimator), smoothing over dd_window
+    (symbols, carriers; odd, default the LS window), dd_passes times.
+    bicm_iters: BICM-ID passes on failed rows (None: 2 for 32QAM with a
+    layered decoder, else 0). Options and modes outside this port raise
+    NotImplementedError naming their ROADMAP item. `recovery` counts the
+    rows re-decoded by BICM-ID and by DD, summed over passes and calls
+    (reset_recovery sets both to 0).
 
     The chain lives on the CUDA card unless `device` names another;
     device="cpu" runs the kernels' plain versions (see
@@ -206,48 +287,102 @@ class RxChain(nn.Module):
     """
 
     def __init__(self, geom: ModeGeometry, device=None, ctrl: bool = False,
-                 deep_sync: bool | None = None,
+                 cfo_range: str = "wide", deep_sync: bool | None = None,
                  ldpc_algo: str = "layered", deep_profile: str = "pruned",
                  deep_coherent: bool | None = None, dd: bool | None = None,
-                 bicm_iters: int | None = None, ldpc_max_iter: int = 50):
+                 bicm_iters: int | None = None,
+                 dd_window: tuple[int, int] | None = None,
+                 dd_passes: int = 1, ldpc_max_iter: int = 50,
+                 llr_scale: float | None = None):
         super().__init__()
         g = geom
         device = resolve_device(device)
         if g.spec.is_mfsk or ctrl:
             raise _roadmap(11, "MFSK/ROBUST modes and ctrl frames")
+        if cfo_range not in ("wide", "narrow"):
+            raise ValueError("cfo_range must be 'wide' or 'narrow'")
+        if cfo_range == "narrow":
+            raise _roadmap(13, "cfo_range='narrow'")
+        if deep_profile not in ("pruned", "c2f", "full"):
+            raise ValueError("deep_profile must be 'pruned', 'c2f' or 'full'")
+        if deep_profile != "pruned":
+            raise _roadmap("8a", f"deep_profile={deep_profile!r}")
         if deep_sync is None:
             deep_sync = g.spec.config <= 4
         if deep_coherent is None:
             deep_coherent = g.spec.config == 0
-        if deep_profile != "pruned":
-            raise _roadmap(8, f"deep_profile={deep_profile!r}")
-        if g.estimator == ZERO_FORCE:
-            raise _roadmap(10, "the zero-forcing estimator (CONFIG_15/16)")
+        if ldpc_algo not in LDPC_ALGOS:
+            raise ValueError("ldpc_algo must be 'spa', 'minsum', 'layered' "
+                             "or 'layered-minsum'")
+        if llr_scale is None:
+            llr_scale = 0.85 if g.spec.ldpc_rate_num == 1 else 0.9
+        # a float32 tensor times a Python float rounds it to float32, as the
+        # JAX chain's np.float32(llr_scale)
+        self.llr_scale = float(llr_scale)
+        zf = g.estimator == ZERO_FORCE
+        n_const = len(g.constellation)
         if dd is None:
-            dd = len(g.constellation) >= 8
-        if dd:
-            raise _roadmap(9, "decision-directed re-estimation (dd=True, "
-                              "default for 8PSK/16QAM)")
-        if bicm_iters:
-            raise _roadmap(10, "BICM-ID (bicm_iters > 0)")
-        if ldpc_algo != "layered":
-            raise _roadmap(10, f"ldpc_algo={ldpc_algo!r}")
-        if not g.spec.amplitude_restoration:
-            raise _roadmap(9, "the decision-directed MER SNR of QAM modes")
+            dd = not zf and n_const >= 8
+        if dd and zf:
+            raise ValueError("decision-directed estimation requires an OFDM "
+                             "mode with the LS estimator")
+        layered = ldpc_algo in ("layered", "layered-minsum")
+        if bicm_iters is None:
+            bicm_iters = 2 if n_const == 32 and layered else 0
+        if bicm_iters and not layered:
+            raise ValueError("bicm_iters requires the layered decoder "
+                             "(soft posterior output)")
+        if dd_window is None:
+            dd_window = (LS_WINDOW, LS_WINDOW)
+        if dd_window[0] % 2 == 0 or dd_window[1] % 2 == 0:
+            raise ValueError("dd_window spans must be odd")
         self.geom = g
+        self.zf = zf
         self.deep_sync = bool(deep_sync)
         self.deep_coherent = self.deep_sync and bool(deep_coherent)
-        arrays, scalars = host_constants(g, self.deep_sync)
+        self.ldpc_algo = ldpc_algo
+        self.dd = bool(dd)
+        self.dd_window = (int(dd_window[0]), int(dd_window[1]))
+        self.dd_passes = int(dd_passes)
+        self.bicm_iters = int(bicm_iters)
+        self.ldpc_max_iter = int(ldpc_max_iter)
+        arrays, scalars = host_constants(g, self.deep_sync, self.dd,
+                                         self.dd_window)
         for name, t in rx_state_from_numpy(arrays, device).items():
             self.register_buffer(name, t)
-        self.ramp_dbin = scalars["ramp_dbin"]
-        self.ramp2_dbin = scalars["ramp2_dbin"]
-        self.ramp_max = scalars["ramp_max"]
+        if zf:
+            self.loo_scale = scalars["loo_scale"]
+        else:
+            self.ramp_dbin = scalars["ramp_dbin"]
+            self.ramp2_dbin = scalars["ramp2_dbin"]
+            self.ramp_max = scalars["ramp_max"]
         self.crc_nbits = (g.frame_bytes + 2) * 8
-        self.decoder = LayeredDecoder(g.spec.ldpc_rate_num, ldpc_max_iter)
+        # the LDPC generator re-encodes decisions (DD, MER SNR); it is the
+        # code table's, not a receive constant of the JAX chain
+        code = load_code(g.spec.ldpc_rate_num)
+        self.code_k = code.k
+        self.register_buffer("_gen", torch.as_tensor(
+            code.gen.astype(np.float32)), persistent=False)
+        check = "minsum" if ldpc_algo.endswith("minsum") else "spa"
+        if layered:
+            self.decoder = ldpc.LayeredDecoder(g.spec.ldpc_rate_num,
+                                               ldpc_max_iter, algo=check)
+        else:
+            self.decoder = ldpc.FloodingDecoder(g.spec.ldpc_rate_num,
+                                                ldpc_max_iter, algo=check)
         self._osc_cache: dict = {}
         self._bank_cache: dict = {}
+        self.reset_recovery()
         self.to(device)
+
+    def reset_recovery(self) -> None:
+        self.recovery = {"bicm_rows": 0, "dd_rows": 0}
+
+    def set_ldpc_max_iter(self, n: int) -> None:
+        """Change the LDPC iteration cap (the reference's -I flag and GUI
+        slider); the next decode uses it."""
+        self.ldpc_max_iter = int(n)
+        self.decoder.max_iter = int(n)
 
     @property
     def device(self) -> torch.device:
@@ -309,21 +444,57 @@ class RxChain(nn.Module):
         return ops.ofdm_demod(sym, self._pad_map, g.nfft, g.ngi)
 
     def grid_stats(self, grid: torch.Tensor):
-        """AGC + ramp-aware LS channel estimate + equalization of a carrier
-        grid [B, S, Nc] -> (equalized flat grid, variance, mean_h,
-        var_full)."""
+        """AGC + channel estimate + equalization of a carrier grid
+        [B, S, Nc] -> (equalized flat grid, variance, mean_h, var_full)."""
+        return self._grid_stats_internal(grid)[:4]
+
+    def _grid_stats_internal(self, grid: torch.Tensor):
+        """grid_stats plus what the decision-directed pass needs: the AGC'd
+        flat grid and the timing-ramp slope (zeros for zero-forcing, which
+        has no ramp model). PSK modes equalize by the channel's phase
+        (amplitude restoration), QAM modes by the channel itself. The noise
+        variance is the equalized pilots' residual (LS), or the pilots'
+        leave-one-out residual (ZF, whose estimate passes through them)."""
         b = grid.shape[0]
         flat = grid.reshape(b, -1)
         y_pil = flat[:, self._pilot_cells]
         gain = PILOT_BOOST / torch.mean(torch.abs(y_pil), dim=-1, keepdim=True)
         flat = flat * gain
         y_pil = y_pil * gain
-        h_meas = y_pil / self._pilot_seq
+        if self.zf:
+            h = torch.complex(y_pil.real @ self._est_op.T,
+                              y_pil.imag @ self._est_op.T)
+            slope = torch.zeros(b, device=grid.device)
+        else:
+            slope = self._ramp_slope(y_pil / self._pilot_seq)
+            y_est = y_pil * _cis(-slope[:, None] * self._pil_bins[None])
+            h = torch.complex(y_est.real @ self._est_op.T,
+                              y_est.imag @ self._est_op.T)
+            h = h * _cis(slope[:, None] * self._cell_bins[None])
+        h_pil = h[:, self._pilot_cells]
+        mean_h = torch.mean(torch.abs(h_pil), dim=-1)
+        eq = flat / self._h_eq(h)
+        if self.zf:
+            h_meas = y_pil / self._pilot_seq
+            h_loo = torch.complex(h_meas.real @ self._loo_op.T,
+                                  h_meas.imag @ self._loo_op.T)
+            resid = (h_meas - h_loo) * self._pilot_seq
+            variance = (torch.mean(torch.abs(resid) ** 2, dim=-1)
+                        * self.loo_scale)
+        else:
+            variance = torch.mean(torch.abs(eq[:, self._pilot_cells]
+                                            - self._pilot_seq) ** 2, dim=-1)
+        var_full = torch.mean(torch.abs(y_pil / h_pil - self._pilot_seq) ** 2,
+                              dim=-1)
+        return eq, variance, mean_h, var_full, flat, slope
+
+    def _ramp_slope(self, h_meas: torch.Tensor) -> torch.Tensor:
+        """The timing-ramp slope [B] from the pilot pairs' correlation
+        angle, shrunk by its coherence (near 1 on clean signals, near 0
+        where the angle is noise) and refined by the long-lag pairs."""
         pa = h_meas[:, self._ramp_a]
         pb = h_meas[:, self._ramp_b]
         corr = torch.sum(pa * torch.conj(pb), dim=-1)
-        # coherence shrinkage: near 1 on clean signals, near 0 where the
-        # pair angle is noise
         denom = torch.sum(torch.abs(pa) * torch.abs(pb), dim=-1)
         coh = torch.abs(corr) / torch.clamp(denom, min=1e-30)
         slope = coh * torch.atan2(corr.imag, corr.real) / self.ramp_dbin
@@ -336,28 +507,204 @@ class RxChain(nn.Module):
             coh2 = torch.abs(corr2) / torch.clamp(den2, min=1e-30)
             slope = slope + (coh2 * torch.atan2(corr2.imag, corr2.real)
                              / self.ramp2_dbin)
-        slope = torch.clamp(slope, -self.ramp_max, self.ramp_max)
-        y_est = y_pil * _cis(-slope[:, None] * self._pil_bins[None])
-        h = torch.complex(y_est.real @ self._est_op.T,
-                          y_est.imag @ self._est_op.T)
-        h = h * _cis(slope[:, None] * self._cell_bins[None])
+        return torch.clamp(slope, -self.ramp_max, self.ramp_max)
+
+    def _h_eq(self, h: torch.Tensor) -> torch.Tensor:
+        """What a cell is divided by: the channel's phase on PSK modes
+        (amplitude restoration), the channel itself on QAM modes."""
+        if self.geom.spec.amplitude_restoration:
+            return h / torch.clamp(torch.abs(h), min=1e-30)
+        return h
+
+    # ------------------------------------------------------------------
+    def _demap(self, eq: torch.Tensor, variance: torch.Tensor,
+               scale: float | None):
+        """Equalized flat grid -> (LLRs in wire order [B, nBits], data
+        symbols in tf-deinterleaved order), the LLRs times scale if given."""
+        data = eq[:, self._data_cells][:, self._tf_iperm]
+        llr = psk.demod(data, self._const, variance)
+        if scale is not None:
+            llr = llr * scale
+        return llr[:, self._bit_iperm], data
+
+    def _ofdm_llr(self, grid: torch.Tensor):
+        """Carrier grid -> calibrated deinterleaved LLRs, and (flat AGC'd
+        grid, ramp slope, equalized data, variance, mean_h, var_full)."""
+        eq, variance, mean_h, var_full, flat, slope = \
+            self._grid_stats_internal(grid)
+        llr, data = self._demap(eq, variance, self.llr_scale)
+        return llr, (flat, slope, data, variance, mean_h, var_full)
+
+    def decode_ofdm(self, grid: torch.Tensor):
+        """Carrier grid -> (LLRs, SNR dB, mean_h, equalized data)."""
+        llr, (_f, _s, data, variance, mean_h, var_full) = self._ofdm_llr(grid)
+        var = var_full if self.geom.spec.amplitude_restoration else variance
+        snr = 10.0 * torch.log10(1.0 / torch.clamp(var, min=1e-30))
+        return llr, snr, mean_h, data
+
+    # ------------------------------------------------------------------
+    def _reencode_symbols(self, wire_bits: torch.Tensor) -> torch.Tensor:
+        """Decoded wire bits [B, nReal] (after dispersal, as sent) ->
+        re-encoded, re-modulated data symbols in tf-deinterleaved order: the
+        decision feedback of the MER SNR and of the DD re-estimate."""
+        g = self.geom
+        u = torch.cat([wire_bits, wire_bits[:, : g.n_virtual]], dim=-1)
+        cw = ldpc.encode(self._gen, u)
+        tx_bits = torch.cat([wire_bits, cw[:, self.code_k:]], dim=-1)
+        return psk.mod(tx_bits[:, self._bit_perm], self._const)
+
+    def _mer_snr(self, real_bits: torch.Tensor,
+                 data_eq: torch.Tensor) -> torch.Tensor:
+        """SNR dB from the modulation error: the re-encoded decisions
+        against the equalized data symbols (reference
+        telecom_system.cc:1376-1401)."""
+        ideal = self._reencode_symbols(real_bits ^ self._dispersal[None])
+        var = torch.mean(torch.abs(ideal - data_eq) ** 2, dim=-1)
+        return -10.0 * torch.log10(torch.clamp(var, min=1e-30))
+
+    def _dd_demod(self, flat: torch.Tensor, slope: torch.Tensor,
+                  wire_bits: torch.Tensor):
+        """Decision-directed demod: the re-encoded codeword and the pilots
+        as known symbols x on every cell, H = box(y x*) / box(|x|^2) over a
+        (symbol x carrier) box window (two small matmuls), the timing ramp
+        of the first pass taken out before the average and put back after;
+        then re-equalize and re-demap. -> (LLRs, data, variance, mean_h,
+        var_full)."""
+        g = self.geom
+        b = flat.shape[0]
+        ideal = self._reencode_symbols(wire_bits)
+        npil = self._pilot_seq.shape[0]
+        xsrc = torch.cat([self._pilot_seq[None].expand(b, npil), ideal,
+                          torch.zeros_like(ideal[:, :1])], dim=-1)
+        x_flat = xsrc[:, self._dd_src]                         # [B, S*Nc]
+        rot = _cis(-slope[:, None] * self._cell_bins[None])
+        num = flat * rot * torch.conj(x_flat)
+        den = torch.abs(x_flat) ** 2
+        sh = (b, g.nsymb, g.nc)
+
+        def box2d(x):                                          # [B, S, Nc]
+            return (self._dd_box_s @ x.reshape(sh) @ self._dd_box_c
+                    ).reshape(b, -1)
+
+        h = (torch.complex(box2d(num.real), box2d(num.imag))
+             / torch.clamp(box2d(den), min=1e-12))
+        h = h * torch.conj(rot)
         h_pil = h[:, self._pilot_cells]
         mean_h = torch.mean(torch.abs(h_pil), dim=-1)
-        eq = flat / (h / torch.clamp(torch.abs(h), min=1e-30))
-        eq_pil = eq[:, self._pilot_cells]
-        variance = torch.mean(torch.abs(eq_pil - self._pilot_seq) ** 2, dim=-1)
-        var_full = torch.mean(torch.abs(y_pil / h_pil - self._pilot_seq) ** 2,
-                              dim=-1)
-        return eq, variance, mean_h, var_full
+        eq = flat / self._h_eq(h)
+        variance = torch.mean(torch.abs(eq[:, self._pilot_cells]
+                                        - self._pilot_seq) ** 2, dim=-1)
+        var_full = torch.mean(torch.abs(flat[:, self._pilot_cells] / h_pil
+                                        - self._pilot_seq) ** 2, dim=-1)
+        llr, data = self._demap(eq, variance, self.llr_scale)
+        return llr, data, variance, mean_h, var_full
 
-    def llr_to_payload(self, llr: torch.Tensor):
-        """Deinterleaved LLRs [B, nBits] -> layered LDPC -> CRC16 check ->
-        (payload [B, frame_bytes] uint8, crc_ok, iters)."""
+    def _decode_llr_dd(self, llr, flat, slope, data, variance, var_full,
+                       mean_h):
+        """LDPC decode (with BICM-ID when on), then, with dd, the
+        decision-directed pass dd_passes times on the rows that have not
+        converged: each pass re-estimates from the last decisions and a row
+        takes its new result. Converged rows keep theirs. Which rows are
+        left is read on the host (one sync per pass; none runs when every
+        row converged). -> (payload, crc_ok, iters, real_bits, data,
+        variance, var_full, mean_h)."""
+        payload, crc_ok, iters, real_bits, conv = self.llr_to_payload(
+            llr, data, variance)
+        out = (payload, crc_ok, iters, real_bits, data, variance, var_full,
+               mean_h)
+        if not self.dd:
+            return out
+
+        def redecode(rows, state):
+            wire = state[3][rows] ^ self._dispersal[None]
+            llr2, data2, var2, mh2, vf2 = self._dd_demod(flat[rows],
+                                                         slope[rows], wire)
+            pay2, crc2, it2, rb2, conv2 = self.llr_to_payload(llr2, data2,
+                                                              var2)
+            return (pay2, crc2, it2, rb2, data2, var2, vf2, mh2), conv2
+
+        return self._redecode_failed(conv, "dd_rows", self.dd_passes,
+                                     redecode, out)[0]
+
+    def _redecode_failed(self, conv, key: str, passes: int, redecode, state):
+        """The recovery loop of BICM-ID and DD, passes times: read on the
+        host which rows have not converged (stop when none is left), count
+        them in recovery[key], and let redecode(rows, state) give their new
+        values of the state's tensors and whether they converged; each row
+        takes its new values. -> (state, converged)."""
+        for _ in range(passes):
+            rows = torch.nonzero(~conv)[:, 0]
+            if rows.numel() == 0:
+                break
+            self.recovery[key] += rows.numel()
+            new, conv2 = redecode(rows, state)
+            state = tuple(t.index_copy(0, rows, n)
+                          for t, n in zip(state, new))
+            conv = conv.index_copy(0, rows, conv2)
+        return state, conv
+
+    # ------------------------------------------------------------------
+    def _to_codeword(self, llr: torch.Tensor) -> torch.Tensor:
+        """Wire-order LLRs [B, nBits] -> codeword order [B, N]: the real
+        bits, the virtual bits (copies of the first n_virtual), parity."""
+        g = self.geom
+        return torch.cat([llr[:, : g.n_real], llr[:, : g.n_virtual],
+                          llr[:, g.n_real: g.n_real + g.ldpc_p]],
+                         dim=-1).to(torch.float32)
+
+    def _bicm_decode(self, llr: torch.Tensor, data: torch.Tensor,
+                     variance: torch.Tensor):
+        """First layered decode, then bicm_iters BICM-ID passes on the rows
+        that have not converged: the decoder's extrinsic (posterior minus
+        input, the virtual bits' folded onto the bits they copy) becomes
+        per-symbol priors of the log-MAP demapper, whose extrinsic LLRs are
+        decoded again; iters accumulate. The demapper's channel metric uses
+        variance / llr_scale, in the units of the calibrated LLRs. Which
+        rows are left is read on the host once per pass. llr: wire-order
+        LLRs; data: equalized symbols, tf-deinterleaved. -> (codeword bits,
+        iters, converged)."""
+        g = self.geom
+        llr_n = self._to_codeword(llr)
+        bits, iters, conv, post = self.decoder(llr_n, soft=True)
+        nb = self._const.shape[0].bit_length() - 1
+        var_eff = variance / self.llr_scale
+        nr, nv = g.n_real, g.n_virtual
+
+        def redecode(rows, state):
+            bits, iters, llr_n, post = state
+            ext = post[rows] - llr_n[rows]
+            ext_real = ext[:, :nr].clone()
+            ext_real[:, :nv] += ext[:, nr: nr + nv]
+            ext_wire = torch.cat([ext_real, ext[:, nr + nv:]], dim=-1)
+            la = ext_wire[:, self._bit_perm].reshape(rows.numel(), -1, nb)
+            ext2 = psk.demod_full(data[rows], self._const, var_eff[rows], la)
+            llr_n2 = self._to_codeword(ext2[:, self._bit_iperm])
+            bits2, it2, conv2, post2 = self.decoder(llr_n2, soft=True)
+            return (bits2, iters[rows] + it2, llr_n2, post2), conv2
+
+        (bits, iters, _llr_n, _post), conv = self._redecode_failed(
+            conv, "bicm_rows", self.bicm_iters, redecode,
+            (bits, iters, llr_n, post))
+        return bits, iters, conv
+
+    def _decode_codeword(self, llr: torch.Tensor, data: torch.Tensor = None,
+                         variance: torch.Tensor = None):
+        """Wire-order LLRs -> LDPC, with BICM-ID on the failed rows when
+        bicm_iters > 0 and the equalized data and variance are given ->
+        (codeword bits, iters, converged)."""
+        if self.bicm_iters > 0 and data is not None:
+            return self._bicm_decode(llr, data, variance)
+        return self.decoder(self._to_codeword(llr))
+
+    def llr_to_payload(self, llr: torch.Tensor, data: torch.Tensor = None,
+                       variance: torch.Tensor = None):
+        """Deinterleaved LLRs [B, nBits] -> LDPC (BICM-ID on the failed rows
+        when bicm_iters > 0 and the equalized data and variance are given)
+        -> CRC16 check -> (payload [B, frame_bytes] uint8, crc_ok, iters,
+        real bits [B, nReal], converged)."""
         g = self.geom
         b = llr.shape[0]
-        llr_n = torch.cat([llr[:, : g.n_real], llr[:, : g.n_virtual],
-                           llr[:, g.n_real: g.n_real + g.ldpc_p]], dim=-1)
-        bits, iters, _conv = self.decoder(llr_n)
+        bits, iters, conv = self._decode_codeword(llr, data, variance)
         real_bits = bits[:, : g.n_real] ^ self._dispersal[None]
         all_zeros = torch.all(real_bits[:, : (g.n_real // 8) * 8] == 0, dim=-1)
         crc_bits = real_bits[:, : self.crc_nbits]
@@ -368,7 +715,29 @@ class RxChain(nn.Module):
         shifts = torch.arange(8, device=llr.device)
         payload = torch.sum(real_bits[:, : g.frame_bytes * 8].reshape(b, -1, 8)
                             << shifts, dim=-1).to(torch.uint8)
-        return payload, crc_ok, iters
+        return payload, crc_ok, iters, real_bits, conv
+
+    @torch.no_grad()
+    def bb_decode_bits(self, grid: torch.Tensor) -> torch.Tensor:
+        """Baseband-harness decode (reference baseband_test_EsN0): carrier
+        grid [B, S, Nc] -> LDPC-decoded bits [B, nReal], with BICM-ID and the
+        decision-directed passes when on. The harness has no dispersal, so
+        the decoded bits feed the re-estimate directly."""
+        g = self.geom
+        with _full_fp32_matmul():
+            llr, (flat, slope, data, variance, _m, _v) = self._ofdm_llr(grid)
+            bits, _it, conv = self._decode_codeword(llr, data, variance)
+
+            def redecode(rows, state):
+                llr2 = self._dd_demod(flat[rows], slope[rows],
+                                      state[0][rows, : g.n_real])[0]
+                bits2, _it2, conv2 = self.decoder(self._to_codeword(llr2))
+                return (bits2,), conv2
+
+            (bits,), _conv = self._redecode_failed(
+                conv, "dd_rows", self.dd_passes if self.dd else 0, redecode,
+                (bits,))
+        return bits[:, : g.n_real]
 
     # ------------------------------------------------------------------
     def _rotated_bank(self, tmpl_d: torch.Tensor, freqs, mf_d: int,
@@ -557,6 +926,9 @@ class RxChain(nn.Module):
 
     def _decode_from(self, pb: torch.Tensor, delay: torch.Tensor,
                      coarse_cfo: torch.Tensor, metric: torch.Tensor):
+        """Decode at one (start, coarse CFO) hypothesis per row: data FIR,
+        Moose, CFO-hypothesis pick, equalize, demap, LDPC (with BICM-ID and
+        the DD passes when on), CRC, SNR."""
         g = self.geom
         b = pb.shape[0]
         dec0 = self.extract_frame_decimated_pb(pb, delay, g.nsymb)
@@ -571,11 +943,36 @@ class RxChain(nn.Module):
         resid = sync.moose_cfo(rotate(coarse_cfo), g, self._pad_map)
         freq_m = coarse_cfo + resid
         freq_m = torch.where(torch.abs(freq_m) > 0.1, freq_m, 0.0)
-        # CFO hypotheses (Moose is unambiguous within +-half a subcarrier);
-        # the one with the lowest pilot variance wins. Per hypothesis only
-        # the pilot cells are extracted (per-symbol partial DFT).
+        # CFO hypotheses (Moose is unambiguous within +-half a subcarrier)
         subc = float(np.float32(g.bandwidth / g.nc))
-        hyps = [freq_m, torch.zeros_like(freq_m), freq_m + subc, freq_m - subc]
+        hyps = torch.stack([freq_m, torch.zeros_like(freq_m), freq_m + subc,
+                            freq_m - subc])
+        if self.zf:
+            eq, variance, mean_h, var_full, freq = self._zf_pick(hyps, rotate)
+            flat = slope = None               # no DD pass with zero-forcing
+        else:
+            freq = self._pilot_pick(hyps, rotate)
+            eq, variance, mean_h, var_full, flat, slope = \
+                self._grid_stats_internal(self.demod_grid(rotate(freq)))
+        # the JAX receive applies no LLR calibration scale here
+        llr, data = self._demap(eq, variance, None)
+        payload, crc_ok, iters, real_bits, data, variance, var_full, mean_h = \
+            self._decode_llr_dd(llr, flat, slope, data, variance, var_full,
+                                mean_h)
+        if g.spec.amplitude_restoration:
+            snr = 10.0 * torch.log10(1.0 / torch.clamp(var_full, min=1e-30))
+        else:
+            # QAM: the pilot residual would fold in the LS smoother's
+            # estimation bias and under-report strong signals
+            snr = self._mer_snr(real_bits, data)
+        return RxResult(payload, crc_ok, delay, freq, snr, iters, metric,
+                        mean_h)
+
+    def _pilot_pick(self, hyps: torch.Tensor, rotate) -> torch.Tensor:
+        """The CFO hypothesis [H, B] with the lowest pilot residual, from the
+        pilot cells alone (per-symbol partial DFT) -> freq [B]."""
+        g = self.geom
+        b = hyps.shape[1]
         pre = g.preamble_nsymb * g.nofdm
         sel = []
         for f_h in hyps:
@@ -587,20 +984,29 @@ class RxChain(nn.Module):
                                                       keepdim=True))
             h_pil = torch.complex(y_pil.real @ self._est_pil_op.T,
                                   y_pil.imag @ self._est_pil_op.T)
-            h_eq = h_pil / torch.clamp(torch.abs(h_pil), min=1e-30)
-            sel.append(torch.mean(torch.abs(y_pil / h_eq - self._pilot_seq)
-                                  ** 2, dim=-1))
+            sel.append(torch.mean(torch.abs(y_pil / self._h_eq(h_pil)
+                                            - self._pilot_seq) ** 2, dim=-1))
         pick = torch.argmin(torch.stack(sel), dim=0)[None]
-        freq = torch.gather(torch.stack(hyps), 0, pick)[0]
-        eq, variance, mean_h, var_full = self.grid_stats(
-            self.demod_grid(rotate(freq)))
-        data = eq[:, self._data_cells][:, self._tf_iperm]
-        # the JAX receive applies no LLR calibration scale here
-        llr = psk.demod(data, self._const, variance)[:, self._bit_iperm]
-        payload, crc_ok, iters = self.llr_to_payload(llr)
-        snr = 10.0 * torch.log10(1.0 / torch.clamp(var_full, min=1e-30))
-        return RxResult(payload, crc_ok, delay, freq, snr, iters, metric,
-                        mean_h)
+        return torch.gather(hyps, 0, pick)[0]
+
+    def _zf_pick(self, hyps: torch.Tensor, rotate):
+        """Zero-forcing passes through the pilots, so their residual cannot
+        tell hypotheses apart: each gets a full grid, and the one whose
+        equalized data lie closest to the constellation (mean hard-decision
+        error power) wins. -> (eq, variance, mean_h, var_full, freq) of the
+        winner."""
+        stats, sel = [], []
+        for f_h in hyps:
+            st = self.grid_stats(self.demod_grid(rotate(f_h)))
+            data_h = st[0][:, self._data_cells]
+            d2 = torch.amin(torch.abs(data_h[..., None] - self._const) ** 2,
+                            dim=-1)
+            sel.append(torch.mean(d2, dim=-1))
+            stats.append(st)
+        pick = torch.argmin(torch.stack(sel), dim=0)
+        rows = torch.arange(hyps.shape[1], device=hyps.device)
+        out = [torch.stack(field)[pick, rows] for field in zip(*stats)]
+        return (*out, hyps[pick, rows])
 
     @torch.no_grad()
     def receive(self, pb_buffer) -> RxResult:

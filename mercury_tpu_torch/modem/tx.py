@@ -1,5 +1,6 @@
 """Transmit chain: payload bytes -> passband samples (PyTorch port of
-`TxChain` in the JAX package's `modem/tx.py`, OFDM modes).
+`TxChain` in the JAX package's `modem/tx.py`, the OFDM modes CONFIG_0-16:
+BPSK, QPSK, 8PSK, 16QAM and 32QAM).
 
 CRC16 append -> energy dispersal -> virtual-bit duplication -> LDPC encode ->
 parity relocation -> bit interleave -> PSK map -> time/frequency interleave ->
@@ -32,7 +33,7 @@ class TxChain(nn.Module):
     parity); the complex type follows it. The chain lives on the CUDA card
     unless `device` names another (device="cpu" for the CPU; see
     convert.resolve_device). MFSK modes and control frames are not ported
-    yet (ROADMAP.md §1, item 9)."""
+    yet (ROADMAP.md §1, item 11)."""
 
     def __init__(self, geom: ModeGeometry, dtype: torch.dtype = torch.float32,
                  device=None, ctrl: bool = False):
@@ -42,7 +43,7 @@ class TxChain(nn.Module):
         if g.spec.is_mfsk or ctrl:
             raise NotImplementedError(
                 "MFSK/ROBUST modes and ctrl frames are not ported yet "
-                "(ROADMAP.md §1, item 9)")
+                "(ROADMAP.md §1, item 11)")
         self.geom = g
         self.dtype = dtype
         self.cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64

@@ -10,14 +10,18 @@ wherever the top two lags differ by more than 1e-3 in the ragged cases) and
 equal argmax hypotheses where the top two differ by more than 1e-3, pilot
 scores rtol 1e-4 / atol 1e-5 (float32 sums in another order). The
 matched-filter kernels multiply in TF32 on the tensor cores; the plain
-versions are float32 FFTs."""
+versions are float32 FFTs. A CONFIG_16 receive on the card equals the
+CPU's in crc_ok, delay and decoded payloads, iters within one sweep."""
 
 import numpy as np
 import pytest
 import torch
 
+from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.dsp import kernels
+from mercury_tpu_torch.modem.rx import RxChain
+from mercury_tpu_torch.modem.tx import TxChain
 
 
 @pytest.fixture
@@ -376,3 +380,30 @@ def test_pilot_cand_score_kernel_bursty_row(cuda_device):
     want = kernels.pilot_cand_score_ref(*args)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert got[0, -1] == 0.0 and (got[0, :-1] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("esn0", [31.0, 22.0])
+def test_config16_receive_on_card_matches_cpu(cuda_device, esn0):
+    """32QAM 14/16 (DD, BICM-ID and the MER SNR on), batch 8: clean, and
+    at 22 dB where rows take a few LDPC sweeps."""
+    g = build_geometry(16)
+    gen = torch.Generator().manual_seed(16)
+    payload = torch.randint(0, 256, (8, g.frame_bytes), generator=gen,
+                            dtype=torch.uint8)
+    frames = TxChain(g, device="cpu").transmit(payload)
+    delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
+    buf = sim.awgn_passband(frames, sim.sigma_for_esn0(esn0), delay,
+                            g.nofdm * g.buffer_nsymb * g.interp, gen)
+    before = dict(kernels.LAUNCHES)
+    res = RxChain(g, device=cuda_device).receive(buf.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mix_fir_decimate"] > before["mix_fir_decimate"]
+    assert kernels.LAUNCHES["deep_mf_score"] > before["deep_mf_score"]
+    ref = RxChain(g, device="cpu").receive(buf)
+    ok = ref.crc_ok
+    assert ok.all()
+    assert torch.equal(res.crc_ok.cpu(), ok)
+    assert torch.equal(res.delay.cpu(), ref.delay)
+    assert torch.equal(res.payload.cpu()[ok], payload[ok])
+    assert (res.iters.cpu() - ref.iters).abs().max() <= 1

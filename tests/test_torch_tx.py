@@ -1,6 +1,7 @@
 """mercury_tpu_torch.modem.tx: float64 passband against the reference's
-golden frames (5e-10, the standard of tests/test_tx.py), float32 against
-the JAX TxChain (atol 1e-5)."""
+golden frames (5e-10, the standard of tests/test_tx.py) for CONFIG_3, 9 and
+10-16 at both pilot densities, float32 against the JAX TxChain (atol
+1e-5)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,24 +9,39 @@ import pytest
 import torch
 
 from mercury_tpu.core.geometry import build_geometry
+from mercury_tpu.core.modes import LOW_DENSITY
 from mercury_tpu.modem.tx import TxChain as JaxTx
 from mercury_tpu_torch.core.geometry import build_geometry as port_geometry
 from mercury_tpu_torch.modem.tx import TxChain
 
 
-@pytest.mark.parametrize("cfg", [3, 9])
+# the top of the ladder: 8PSK (10, 11, 14), 16QAM (13, 15), 32QAM cross (16)
+TOP = [10, 11, 12, 13, 14, 15, 16]
+
+
+@pytest.mark.parametrize("cfg", [3, 9] + TOP)
 def test_float64_passband_matches_golden(golden, cfg):
-    tx = TxChain(port_geometry(cfg), dtype=torch.float64, device="cpu")
-    payload = torch.as_tensor(golden(f"cfg{cfg}_payload_bytes").astype(np.uint8))[None]
+    check_golden(golden, cfg, f"cfg{cfg}", port_geometry(cfg))
+
+
+@pytest.mark.parametrize("cfg", TOP)
+def test_float64_passband_matches_golden_low_density(golden, cfg):
+    check_golden(golden, cfg, f"cfg{cfg}ld", port_geometry(cfg, LOW_DENSITY))
+
+
+def check_golden(golden, cfg, tag, geom):
+    tx = TxChain(geom, dtype=torch.float64, device="cpu")
+    payload = torch.as_tensor(
+        golden(f"{tag}_payload_bytes").astype(np.uint8))[None]
     nofilter = tx.transmit(payload, filtered=False)[0].numpy()
     single = tx.transmit(payload)[0].numpy()
-    np.testing.assert_allclose(nofilter, golden(f"cfg{cfg}_tx_passband_nofilter"),
+    np.testing.assert_allclose(nofilter, golden(f"{tag}_tx_passband_nofilter"),
                                atol=5e-10)
-    np.testing.assert_allclose(single, golden(f"cfg{cfg}_tx_passband_single"),
+    np.testing.assert_allclose(single, golden(f"{tag}_tx_passband_single"),
                                atol=5e-10)
 
 
-@pytest.mark.parametrize("cfg", [3, 9])
+@pytest.mark.parametrize("cfg", [3, 9, 11, 13, 16])
 def test_float32_matches_jax_txchain(cfg):
     g = build_geometry(cfg)
     rng = np.random.default_rng(cfg)
@@ -42,5 +58,5 @@ def test_float32_matches_jax_txchain(cfg):
 
 
 def test_out_of_port_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1, item 11\)"):
         TxChain(port_geometry(100), device="cpu")
