@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -72,6 +73,15 @@ def mix_to_passband(x: torch.Tensor, fs: float, fc: float, amp: float,
     t = start_sample + torch.arange(n, dtype=x.real.dtype, device=x.device)
     ph = (2 * math.pi * fc / fs) * t
     return x.real * amp * torch.cos(ph) + x.imag * amp * torch.sin(ph)
+
+
+def mixer_table(n: int, fc: float, fs: float,
+                device: torch.device) -> torch.Tensor:
+    """The down-mixer's oscillator sqrt(2)*exp(+j*2*pi*fc/fs*i), i < n:
+    float64 phase on the host, complex64 on `device`."""
+    ph = (2 * np.pi * fc / fs) * np.arange(n, dtype=np.float64)
+    osc = (np.sqrt(2.0) * (np.cos(ph) + 1j * np.sin(ph))).astype(np.complex64)
+    return torch.as_tensor(osc, device=device)
 
 
 def peak_clip(x: torch.Tensor, papr_db: float) -> torch.Tensor:

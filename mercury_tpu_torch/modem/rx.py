@@ -1,6 +1,7 @@
 """Receive chain: passband capture buffer -> decoded payload (PyTorch port of
-the OFDM path of `RxChain` in the JAX package's `modem/rx.py`, CONFIG_0-16 at
-both pilot densities).
+`RxChain` in the JAX package's `modem/rx.py`: the OFDM modes CONFIG_0-16 and
+the MFSK ROBUST modes CONFIG_100-102 at both pilot densities, with the MFSK
+short control frames of ROBUST_0/1).
 
 Stages, in order: mixer + strided time-sync FIR (CUDA kernel
 `mix_fir_decimate`), Schmidl-Cox top-K candidates, then the delay and coarse
@@ -20,6 +21,11 @@ demapper; auto on 32QAM) and by decision-directed re-estimation (the decoded
 codeword as pilots on every cell; auto on 8PSK/16QAM/32QAM with the LS
 estimator). QAM modes report the SNR from the re-encoded decisions (MER).
 
+An MFSK mode takes the same time-sync FIR, then scores the preamble tones
+at every symbol-aligned start (`sync.mfsk_sync_metric`), decodes at the
+best (data FIR, FFT, energy-detection soft demod, LDPC, CRC16) and decodes
+the rows that fail once more at the runner-up start.
+
 JAX's jit/vmap/lax control flow becomes eager code over a written-out batch
 axis. Float32 matmuls run at full precision (no TF32) inside `receive`.
 """
@@ -29,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -43,7 +50,7 @@ from mercury_tpu_torch.core.modes import ZERO_FORCE
 from mercury_tpu_torch.dsp import kernels, ops
 from mercury_tpu_torch.fec import ldpc
 from mercury_tpu_torch.fec.tables import load_code
-from mercury_tpu_torch.modem import psk, sync
+from mercury_tpu_torch.modem import mfsk, psk, sync
 
 PILOT_BOOST = 1.33
 DEEP_GRID_HZ = 30.0      # whole-buffer scan CFO grid ("pruned" profile)
@@ -57,43 +64,59 @@ class RxResult:
     """Per-frame decode outcome (all tensors batched)."""
     payload: torch.Tensor       # [B, frame_bytes] uint8
     crc_ok: torch.Tensor        # [B] bool (CRC passed, not all-zeros)
-    delay: torch.Tensor         # [B] int64 frame start (interp samples)
+    delay: torch.Tensor         # [B] int32 frame start (interp samples)
     freq_offset: torch.Tensor   # [B] float32 Hz
     snr_db: torch.Tensor        # [B] float32
-    iters: torch.Tensor         # [B] int64 LDPC sweeps
+    iters: torch.Tensor         # [B] int32 LDPC sweeps
     sync_metric: torch.Tensor   # [B] float32 coarse sync correlation
-    mean_h: torch.Tensor        # [B] float32 mean |H| at the pilots
+    mean_h: torch.Tensor        # [B] float32 mean |H| at the pilots (MFSK: 1)
 
 
 def host_constants(geom: ModeGeometry, deep_sync: bool, dd: bool = False,
                    dd_window: tuple[int, int] = (LS_WINDOW, LS_WINDOW)
                    ) -> tuple[dict[str, np.ndarray], dict]:
-    """The receive constants of an OFDM mode, built on the host exactly as
-    the JAX RxChain builds them: (arrays by buffer name, scalars of the
-    channel estimator). The LS estimator has the timing-ramp pairs, the
-    zero-forcing one its leave-one-out pilot smoother; the pilot-only symbol
-    waveforms exist with deep sync only and the decision-directed constants
-    with dd only, as in the JAX chain."""
+    """The receive constants of a mode, built on the host exactly as the JAX
+    RxChain builds them: (arrays by buffer name, scalars of the channel
+    estimator). An MFSK mode has the FIRs, the index maps, the preamble's
+    matched-filter templates and the CRC map only. Of an OFDM mode, the LS
+    estimator has the timing-ramp pairs, the zero-forcing one its
+    leave-one-out pilot smoother; the pilot-only symbol waveforms exist
+    with deep sync only and the decision-directed constants with dd only,
+    as in the JAX chain."""
     g = geom
-    pilot_cells = np.asarray(g.pilot_cells)
     arrays = {
         "_fir_ts": g.fir_rx_ts, "_fir_data": g.fir_rx_data,
         "_pad_map": g.pad_map, "_bit_iperm": g.bit_iperm,
         "_tf_iperm": g.tf_iperm, "_data_cells": g.data_cells,
-        "_bit_perm": g.bit_perm, "_tf_perm": g.tf_perm,
-        "_pilot_cells": pilot_cells,
+        "_pilot_cells": np.asarray(g.pilot_cells),
         "_dispersal": g.dispersal[: g.n_real],
-        "_pilot_seq": np.asarray(g.pilot_seq, np.complex64),
-        "_est_op": g.est_op, "_const": np.asarray(g.constellation, np.complex64),
     }
-    if g.estimator == ZERO_FORCE:
-        arrays["_loo_op"], loo_scale = _loo_operator(g)
-        scalars = {"loo_scale": loo_scale}
+    scalars = {}
+    if g.spec.is_mfsk:
+        pre_vals = mfsk.preamble_grid(g.mfsk, g.nc, g.preamble_nsymb)
     else:
-        scalars = _ramp_pairs(g, arrays)
-    if dd:
-        arrays.update(_dd_constants(g, dd_window))
-    _sync_constants(g, deep_sync, arrays)
+        arrays.update({
+            "_bit_perm": g.bit_perm, "_tf_perm": g.tf_perm,
+            "_pilot_seq": np.asarray(g.pilot_seq, np.complex64),
+            "_est_op": g.est_op,
+            "_const": np.asarray(g.constellation, np.complex64)})
+        if g.estimator == ZERO_FORCE:
+            arrays["_loo_op"], loo_scale = _loo_operator(g)
+            scalars = {"loo_scale": loo_scale}
+        else:
+            scalars = _ramp_pairs(g, arrays)
+        if dd:
+            arrays.update(_dd_constants(g, dd_window))
+        _sync_constants(g, deep_sync, arrays)
+        pre_vals = g.preamble_vals
+        if g.pre_eq is not None:
+            pre_vals = pre_vals * g.pre_eq[None, :]
+    # known-preamble matched-filter templates (interp-rate waveforms)
+    td = np.concatenate([hostdsp.symbol_mod(pre_vals[l], g.nfft, g.ngi, 1)
+                         for l in range(g.preamble_nsymb)])
+    tmpl = hostdsp.linear_interp_x4(td, g.interp)
+    arrays["_mf_templates"] = np.asarray(
+        tmpl.reshape(g.preamble_nsymb, g.nofdm * g.interp), np.complex64)
     a, c0 = crc_mod.crc_affine(g.frame_bytes + 2)
     arrays["_crc_a"] = a.astype(np.float32)
     arrays["_crc_c0"] = c0
@@ -192,7 +215,7 @@ def _ramp_pairs(g: ModeGeometry, arrays: dict) -> dict:
 
 
 def _sync_constants(g: ModeGeometry, deep_sync: bool, arrays: dict) -> None:
-    """The CFO-hypothesis and matched-filter constants (into arrays)."""
+    """The CFO-hypothesis and pilot-lattice constants (into arrays)."""
     pilot_cells = np.asarray(g.pilot_cells)
     # CFO-hypothesis selection: per-symbol partial DFT of the pilot bins,
     # slot map back to pilot_cells order, pilot rows of the LS operator
@@ -212,15 +235,6 @@ def _sync_constants(g: ModeGeometry, deep_sync: bool, arrays: dict) -> None:
     arrays["_pil_dft_op"] = np.asarray(pil_op, np.complex64)
     arrays["_pil_slot"] = pil_slot
     arrays["_est_pil_op"] = np.asarray(g.est_op)[pilot_cells].astype(np.float32)
-    # known-preamble matched-filter templates (interp-rate waveforms)
-    pre_vals = g.preamble_vals
-    if g.pre_eq is not None:
-        pre_vals = pre_vals * g.pre_eq[None, :]
-    td = np.concatenate([hostdsp.symbol_mod(pre_vals[l], g.nfft, g.ngi, 1)
-                         for l in range(g.preamble_nsymb)])
-    tmpl = hostdsp.linear_interp_x4(td, g.interp)
-    arrays["_mf_templates"] = np.asarray(
-        tmpl.reshape(g.preamble_nsymb, g.nofdm * g.interp), np.complex64)
     if deep_sync:
         # per-symbol pilot-only waveforms for the pilot-lattice arbitration:
         # the frame grid with data cells zeroed, pre-equalized like TX
@@ -241,16 +255,32 @@ def _cis(theta: torch.Tensor) -> torch.Tensor:
     return torch.complex(torch.cos(theta), torch.sin(theta))
 
 
+# receives inside _full_fp32_matmul, and the setting they found
+_PRECISION_LOCK = threading.Lock()
+_precision_users = 0
+_precision_saved = "highest"
+
+
 @contextlib.contextmanager
 def _full_fp32_matmul():
     """Float32 matmuls at full precision (TF32 off) within the block: the
-    LS estimation operator runs on noise-dominated pilots at threshold."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    LS estimation operator runs on noise-dominated pilots at threshold.
+    The setting is process-wide, so the blocks of all threads share it:
+    the first to enter saves the caller's setting and sets "highest", the
+    last to leave restores it."""
+    global _precision_users, _precision_saved
+    with _PRECISION_LOCK:
+        if _precision_users == 0:
+            _precision_saved = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("highest")
+        _precision_users += 1
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        with _PRECISION_LOCK:
+            _precision_users -= 1
+            if _precision_users == 0:
+                torch.set_float32_matmul_precision(_precision_saved)
 
 
 def _roadmap(item: int | str, what: str) -> NotImplementedError:
@@ -260,7 +290,7 @@ def _roadmap(item: int | str, what: str) -> NotImplementedError:
 
 
 class RxChain(nn.Module):
-    """Per-mode RX program for the OFDM modes (CONFIG_0-16).
+    """Per-mode RX program for every mode (CONFIG_0-16, 100-102).
 
     Options as in the JAX RxChain, with its default "wide" acquisition
     profile: the 93.75 Hz coarse-CFO alias is arbitrated by a 3-way
@@ -276,10 +306,19 @@ class RxChain(nn.Module):
     point constellations with the LS estimator), smoothing over dd_window
     (symbols, carriers; odd, default the LS window), dd_passes times.
     bicm_iters: BICM-ID passes on failed rows (None: 2 for 32QAM with a
-    layered decoder, else 0). Options and modes outside this port raise
-    NotImplementedError naming their ROADMAP item. `recovery` counts the
-    rows re-decoded by BICM-ID and by DD, summed over passes and calls
-    (reset_recovery sets both to 0).
+    layered decoder, else 0).
+
+    MFSK modes: ctrl decodes the short control frames of ROBUST_0/1 (only
+    ctrl_nsymb symbols; the punctured LLRs are erasures). mfsk_soft
+    ("sumexp" or "maxlog"), mfsk_noise_pool, mfsk_exp_scale and mfsk_clamp
+    are mfsk.demod's options; with mfsk_sync_cands > 1 a row whose decode
+    fails is decoded once more at the runner-up sync candidate. Deep sync,
+    DD and BICM-ID do not apply (dd or bicm_iters raise ValueError).
+
+    Options outside this port raise NotImplementedError naming their
+    ROADMAP item. `recovery` counts the rows re-decoded by BICM-ID, by DD
+    and at the MFSK runner-up candidate, summed over passes and calls
+    (reset_recovery sets them to 0).
 
     The chain lives on the CUDA card unless `device` names another;
     device="cpu" runs the kernels' plain versions (see
@@ -293,24 +332,30 @@ class RxChain(nn.Module):
                  bicm_iters: int | None = None,
                  dd_window: tuple[int, int] | None = None,
                  dd_passes: int = 1, ldpc_max_iter: int = 50,
-                 llr_scale: float | None = None):
+                 llr_scale: float | None = None, mfsk_soft: str = "sumexp",
+                 mfsk_noise_pool: bool = True, mfsk_sync_cands: int = 2,
+                 mfsk_exp_scale: float = 1.0, mfsk_clamp: float = 5.0):
         super().__init__()
         g = geom
         device = resolve_device(device)
-        if g.spec.is_mfsk or ctrl:
-            raise _roadmap(11, "MFSK/ROBUST modes and ctrl frames")
+        is_mfsk = g.spec.is_mfsk
+        if ctrl and not (is_mfsk and g.spec.ctrl_nbits > 0):
+            raise ValueError("ctrl frames exist only for ROBUST_0/ROBUST_1")
         if cfo_range not in ("wide", "narrow"):
             raise ValueError("cfo_range must be 'wide' or 'narrow'")
-        if cfo_range == "narrow":
-            raise _roadmap(13, "cfo_range='narrow'")
         if deep_profile not in ("pruned", "c2f", "full"):
             raise ValueError("deep_profile must be 'pruned', 'c2f' or 'full'")
-        if deep_profile != "pruned":
+        if mfsk_soft not in ("sumexp", "maxlog"):
+            raise ValueError("mfsk_soft must be 'sumexp' or 'maxlog'")
+        # the MFSK receive reads neither option
+        if cfo_range == "narrow" and not is_mfsk:
+            raise _roadmap(13, "cfo_range='narrow'")
+        if deep_profile != "pruned" and not is_mfsk:
             raise _roadmap("8a", f"deep_profile={deep_profile!r}")
         if deep_sync is None:
-            deep_sync = g.spec.config <= 4
+            deep_sync = not is_mfsk and g.spec.config <= 4
         if deep_coherent is None:
-            deep_coherent = g.spec.config == 0
+            deep_coherent = not is_mfsk and g.spec.config == 0
         if ldpc_algo not in LDPC_ALGOS:
             raise ValueError("ldpc_algo must be 'spa', 'minsum', 'layered' "
                              "or 'layered-minsum'")
@@ -320,15 +365,17 @@ class RxChain(nn.Module):
         # JAX chain's np.float32(llr_scale)
         self.llr_scale = float(llr_scale)
         zf = g.estimator == ZERO_FORCE
-        n_const = len(g.constellation)
+        n_const = 0 if is_mfsk else len(g.constellation)
         if dd is None:
             dd = not zf and n_const >= 8
-        if dd and zf:
+        if dd and (is_mfsk or zf):
             raise ValueError("decision-directed estimation requires an OFDM "
                              "mode with the LS estimator")
         layered = ldpc_algo in ("layered", "layered-minsum")
         if bicm_iters is None:
             bicm_iters = 2 if n_const == 32 and layered else 0
+        if bicm_iters and is_mfsk:
+            raise ValueError("bicm_iters requires an OFDM mode")
         if bicm_iters and not layered:
             raise ValueError("bicm_iters requires the layered decoder "
                              "(soft posterior output)")
@@ -346,16 +393,20 @@ class RxChain(nn.Module):
         self.dd_passes = int(dd_passes)
         self.bicm_iters = int(bicm_iters)
         self.ldpc_max_iter = int(ldpc_max_iter)
+        self.ctrl = bool(ctrl)
+        self.active_nsymb = g.ctrl_nsymb if ctrl else g.nsymb
+        self.active_nbits = g.spec.ctrl_nbits if ctrl else g.n_bits
+        self.mfsk_soft = mfsk_soft
+        self.mfsk_noise_pool = bool(mfsk_noise_pool)
+        self.mfsk_sync_cands = int(mfsk_sync_cands)
+        self.mfsk_exp_scale = float(mfsk_exp_scale)
+        self.mfsk_clamp = float(mfsk_clamp)
         arrays, scalars = host_constants(g, self.deep_sync, self.dd,
                                          self.dd_window)
         for name, t in rx_state_from_numpy(arrays, device).items():
             self.register_buffer(name, t)
-        if zf:
-            self.loo_scale = scalars["loo_scale"]
-        else:
-            self.ramp_dbin = scalars["ramp_dbin"]
-            self.ramp2_dbin = scalars["ramp2_dbin"]
-            self.ramp_max = scalars["ramp_max"]
+        for name, value in scalars.items():     # the estimator's scalars
+            setattr(self, name, value)
         self.crc_nbits = (g.frame_bytes + 2) * 8
         # the LDPC generator re-encodes decisions (DD, MER SNR); it is the
         # code table's, not a receive constant of the JAX chain
@@ -376,7 +427,7 @@ class RxChain(nn.Module):
         self.to(device)
 
     def reset_recovery(self) -> None:
-        self.recovery = {"bicm_rows": 0, "dd_rows": 0}
+        self.recovery = {"bicm_rows": 0, "dd_rows": 0, "mfsk_rows": 0}
 
     def set_ldpc_max_iter(self, n: int) -> None:
         """Change the LDPC iteration cap (the reference's -I flag and GUI
@@ -395,11 +446,7 @@ class RxChain(nn.Module):
         key = (n, self.device)
         arr = self._osc_cache.get(key)
         if arr is None:
-            g = self.geom
-            ph = (2 * np.pi * g.fc / g.fs) * np.arange(n, dtype=np.float64)
-            osc = (np.sqrt(2.0) * (np.cos(ph) + 1j * np.sin(ph))).astype(
-                np.complex64)
-            arr = torch.as_tensor(osc, device=self.device)
+            arr = ops.mixer_table(n, self.geom.fc, self.geom.fs, self.device)
             self._osc_cache[key] = arr
         return arr
 
@@ -436,11 +483,12 @@ class RxChain(nn.Module):
             offset=ntaps - 1 - center)
 
     def demod_grid(self, frame_decim: torch.Tensor) -> torch.Tensor:
-        """Decimated frame [B, (P+S)*Nofdm] -> carrier grid [B, S, Nc]."""
+        """Decimated frame [B, (P+S)*Nofdm] -> carrier grid [B, S, Nc]
+        (S = active_nsymb: Nsymb, or ctrl_nsymb for a control frame)."""
         g = self.geom
         b = frame_decim.shape[0]
         sym = frame_decim[:, g.preamble_nsymb * g.nofdm:].reshape(
-            b, g.nsymb, g.nofdm)
+            b, self.active_nsymb, g.nofdm)
         return ops.ofdm_demod(sym, self._pad_map, g.nfft, g.ngi)
 
     def grid_stats(self, grid: torch.Tensor):
@@ -715,7 +763,7 @@ class RxChain(nn.Module):
         shifts = torch.arange(8, device=llr.device)
         payload = torch.sum(real_bits[:, : g.frame_bytes * 8].reshape(b, -1, 8)
                             << shifts, dim=-1).to(torch.uint8)
-        return payload, crc_ok, iters, real_bits, conv
+        return payload, crc_ok, iters.to(torch.int32), real_bits, conv
 
     @torch.no_grad()
     def bb_decode_bits(self, grid: torch.Tensor) -> torch.Tensor:
@@ -965,8 +1013,8 @@ class RxChain(nn.Module):
             # QAM: the pilot residual would fold in the LS smoother's
             # estimation bias and under-report strong signals
             snr = self._mer_snr(real_bits, data)
-        return RxResult(payload, crc_ok, delay, freq, snr, iters, metric,
-                        mean_h)
+        return RxResult(payload, crc_ok, delay.to(torch.int32), freq, snr,
+                        iters, metric, mean_h)
 
     def _pilot_pick(self, hyps: torch.Tensor, rotate) -> torch.Tensor:
         """The CFO hypothesis [H, B] with the lowest pilot residual, from the
@@ -1008,6 +1056,94 @@ class RxChain(nn.Module):
         out = [torch.stack(field)[pick, rows] for field in zip(*stats)]
         return (*out, hyps[pick, rows])
 
+    # ------------------------------------------------------------------
+    def decode_mfsk(self, grid: torch.Tensor):
+        """MFSK carrier grid [B, active_nsymb, Nc] -> (deinterleaved LLRs
+        [B, nBits], snr [B] zeros, mean_h [B] ones). A control frame's
+        punctured positions, past active_nbits, are erasures (LLR 0;
+        reference telecom_system.cc:1184-1193)."""
+        g = self.geom
+        llr = mfsk.demod(grid, g.mfsk, g.nc, self.active_nsymb,
+                         soft=self.mfsk_soft, exp_scale=self.mfsk_exp_scale,
+                         clamp=self.mfsk_clamp,
+                         noise_pool=self.mfsk_noise_pool)
+        llr = torch.nn.functional.pad(llr, (0, g.n_bits - self.active_nbits))
+        b = grid.shape[0]
+        return (llr[:, self._bit_iperm],
+                torch.zeros(b, dtype=torch.float32, device=grid.device),
+                torch.ones(b, dtype=torch.float32, device=grid.device))
+
+    def _decode_mfsk_at(self, pb: torch.Tensor, delay: torch.Tensor):
+        """The MFSK frame of each row at delay [B] (interp samples): data
+        FIR, FFT, soft demod, LDPC, CRC -> (payload, crc_ok, iters, snr,
+        mean_h)."""
+        frame = self.extract_frame_decimated_pb(pb, delay, self.active_nsymb)
+        llr, snr, mean_h = self.decode_mfsk(self.demod_grid(frame))
+        payload, crc_ok, iters, _bits, _conv = self.llr_to_payload(llr)
+        return payload, crc_ok, iters, snr, mean_h
+
+    def _as_buffer(self, pb_buffer) -> torch.Tensor:
+        """A capture buffer (any real dtype, any device) as a contiguous
+        float32 tensor on the chain's device."""
+        return torch.as_tensor(pb_buffer).to(device=self.device,
+                                             dtype=torch.float32).contiguous()
+
+    @torch.no_grad()
+    def decode_at(self, pb_buffer, delay, freq_offset):
+        """Decode the frame of each row of pb_buffer [B, n] at a known delay
+        [B] (interp samples) and frequency offset [B] (Hz) -> (payload,
+        crc_ok, iters, snr_db, mean_h). MFSK modes only, at offset 0, as
+        their receive decodes; the OFDM branch and nonzero offsets are
+        ROADMAP item 13 (reading the offsets is one host sync)."""
+        if not self.geom.spec.is_mfsk:
+            raise _roadmap(13, "decode_at on an OFDM mode")
+        if bool(torch.any(torch.as_tensor(freq_offset) != 0)):
+            raise _roadmap(13, "decode_at at a nonzero frequency offset")
+        return self._decode_mfsk_at(
+            self._as_buffer(pb_buffer),
+            torch.as_tensor(delay, device=self.device).long())
+
+    def _receive_mfsk(self, pb: torch.Tensor) -> RxResult:
+        """MFSK receive: the time-sync FIR, the preamble tone metric at
+        every symbol-aligned start, the frame decoded at the best start
+        (delay = symbol * Nofdm * interp); with mfsk_sync_cands > 1 the rows
+        that fail their CRC are decoded again at the runner-up start
+        (outside +-1 symbol of the best), and a row takes that result where
+        it passes. Every field then follows the hypothesis the row kept."""
+        g = self.geom
+        b, n = pb.shape
+        sym_len = g.nofdm * g.interp
+        bb_ts = kernels.mix_fir_decimate(pb, self._osc_const(n), self._fir_ts,
+                                         g.interp)
+        met = sync.mfsk_sync_metric(bb_ts, g, decim=g.interp)
+        sym_idx = torch.argmax(met, dim=-1)
+        delay = sym_idx * sym_len
+        metric = torch.gather(met, 1, sym_idx[:, None])[:, 0]
+        payload, crc_ok, iters, snr, mean_h = self._decode_mfsk_at(pb, delay)
+        freq = torch.zeros(b, dtype=torch.float32, device=pb.device)
+        state = (payload, crc_ok, delay.to(torch.int32), iters, snr, mean_h,
+                 metric)
+        if self.mfsk_sync_cands > 1:
+            pos = torch.arange(met.shape[-1], device=pb.device)
+            sup = torch.abs(pos[None] - sym_idx[:, None]) <= 1
+            sym2 = torch.argmax(torch.where(sup, -1.0, met), dim=-1)
+
+            def redecode(rows, old):
+                delay2 = sym2[rows] * sym_len
+                p2, ok2, it2, snr2, mh2 = self._decode_mfsk_at(pb[rows],
+                                                               delay2)
+                new = (p2, ok2, delay2.to(torch.int32), it2, snr2, mh2,
+                       met[rows, sym2[rows]])
+                return tuple(torch.where(ok2.reshape((-1,) + (1,) * (t.ndim - 1)),
+                                         t, o[rows])
+                             for t, o in zip(new, old)), ok2
+
+            state, _ok = self._redecode_failed(crc_ok, "mfsk_rows", 1,
+                                               redecode, state)
+        payload, crc_ok, delay, iters, snr, mean_h, metric = state
+        return RxResult(payload, crc_ok, delay, freq, snr, iters, metric,
+                        mean_h)
+
     @torch.no_grad()
     def receive(self, pb_buffer) -> RxResult:
         """Full RX: sync + CFO + decode. pb_buffer: [B, buffer_samples]
@@ -1017,10 +1153,15 @@ class RxChain(nn.Module):
         its CRC the whole batch is decoded once more at the runner-up
         candidate, and a row takes that result where it passes and its own
         did not. Deciding whether to run that decode reads crc_ok on the host
-        (one device sync per call on that path)."""
-        pb = torch.as_tensor(pb_buffer).to(device=self.device,
-                                           dtype=torch.float32).contiguous()
+        (one device sync per call on that path). On an MFSK mode the rows
+        that fail are decoded once more at the runner-up sync candidate
+        (_receive_mfsk); which rows failed is likewise read on the host.
+        The JAX chain decodes the whole batch again instead; a row's result
+        depends on no other row, so the outputs are the same."""
+        pb = self._as_buffer(pb_buffer)
         with _full_fp32_matmul():
+            if self.geom.spec.is_mfsk:
+                return self._receive_mfsk(pb)
             delay, coarse_cfo, metric, rescue = self._acquire(pb)
             out = self._decode_from(pb, delay, coarse_cfo, metric)
             if rescue is None or bool(out.crc_ok.all()):

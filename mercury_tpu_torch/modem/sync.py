@@ -1,7 +1,7 @@
 """Synchronization: Schmidl-Cox time sync, known-preamble matched filter,
 the coherent whole-buffer scan and pilot-lattice arbitration of the deep
-acquisition, Moose fine CFO (PyTorch port of the OFDM parts of
-the JAX package's `modem/sync.py`).
+acquisition, Moose fine CFO, and the MFSK preamble and ACK/BREAK pattern
+metrics (PyTorch port of the JAX package's `modem/sync.py`).
 
 The Schmidl-Cox window sums are prefix-sum differences (cumsum, then
 difference, as the JAX package computes them off the TPU); the
@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from mercury_tpu_torch.core.geometry import ModeGeometry
+from mercury_tpu_torch.core.geometry import MfskParams, ModeGeometry
 from mercury_tpu_torch.dsp import kernels
 
 
@@ -184,3 +185,79 @@ def moose_cfo(frame_decim: torch.Tensor, geom: ModeGeometry,
         mul = mul + torch.sum(torch.conj(d2) * d1, dim=-1)
     angle = torch.atan2(mul.imag, mul.real)
     return (angle / math.pi) * subc
+
+
+def _symbol_energy(bb: torch.Tensor, geom: ModeGeometry, decim: int
+                   ) -> torch.Tensor:
+    """Carrier energies [B, S, Nc] of the symbol-aligned windows of bb
+    [B, n] (interp rate / decim): decimate to the base rate, frame into
+    Nofdm-sample symbols, strip the GI, FFT / Nfft, take the carriers."""
+    r = geom.interp // decim
+    if r * decim != geom.interp:
+        raise ValueError("decim must divide the interpolation rate")
+    nofdm, ngi, nfft = geom.nofdm, geom.ngi, geom.nfft
+    buffer_nsymb = bb.shape[-1] // (nofdm * r)
+    dec = bb[..., ::r][..., : buffer_nsymb * nofdm]
+    sym = dec.reshape(*bb.shape[:-1], buffer_nsymb, nofdm)[..., ngi: ngi + nfft]
+    spec = torch.fft.fft(sym, dim=-1) / nfft
+    pad_map = torch.as_tensor(np.asarray(geom.pad_map), device=bb.device)
+    return torch.abs(spec[..., pad_map]) ** 2
+
+
+def mfsk_sync_metric(bb: torch.Tensor, geom: ModeGeometry,
+                     decim: int = 1) -> torch.Tensor:
+    """MFSK preamble tone correlation per symbol-aligned offset (reference
+    time_sync_mfsk, ofdm.cc:1969-2063): bb [B, n] at interp rate / decim ->
+    metric [B, n_cand]; candidate s is the frame start s*Nofdm*interp. Each
+    preamble symbol p scores the energy share of its tone (summed over the
+    streams) in symbol s + p."""
+    p = geom.mfsk
+    energy = _symbol_energy(bb, geom, decim)                   # [B, S, Nc]
+    lp = min(geom.preamble_nsymb, len(p.preamble_tones))
+    n_cand = energy.shape[-2] - geom.preamble_nsymb + 1
+    e_total = torch.sum(energy, dim=-1)
+    met = torch.zeros((*bb.shape[:-1], n_cand), dtype=energy.dtype,
+                      device=bb.device)
+    for pp in range(geom.preamble_nsymb):
+        tone = int(p.preamble_tones[pp % lp])
+        e_t = sum(energy[..., int(off) + tone] for off in p.stream_offsets)
+        ratio = torch.where(e_total > 0,
+                            e_t / torch.clamp(e_total, min=1e-30), 0.0)
+        met = met + ratio[..., pp: pp + n_cand]
+    return met
+
+
+def pattern_detect_metric(bb: torch.Tensor, geom: ModeGeometry,
+                          tones: np.ndarray, mfsk_params: MfskParams = None,
+                          decim: int = 1
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """ACK/BREAK tone-pattern detection (reference detect_ack_pattern,
+    ofdm.cc:2067-2186): bb [B, n] at interp rate / decim (the pattern
+    detector passes the base-rate baseband, decim = interp). Per
+    symbol-aligned window, a pattern position matches where its expected
+    hopped tone is the peak of some stream's band; the metric sums
+    E_target / E_total over the matched positions. -> (metric [B, n_cand],
+    matched [B, n_cand]), zeros [B, 1] when the buffer holds no window."""
+    p = mfsk_params if mfsk_params is not None else geom.mfsk
+    nsymb_pat = p.ack_pattern_nsymb
+    r = geom.interp // decim
+    n_cand = bb.shape[-1] // (geom.nofdm * r) - nsymb_pat + 1
+    if n_cand < 1:
+        z = torch.zeros((*bb.shape[:-1], 1), device=bb.device)
+        return z, z
+    energy = _symbol_energy(bb, geom, decim)                   # [B, S, Nc]
+    e_total = torch.clamp(torch.sum(energy, dim=-1), min=1e-30)
+    peaks = [torch.amax(energy[..., int(off): int(off) + p.m], dim=-1)
+             for off in p.stream_offsets]
+    met = torch.zeros((*bb.shape[:-1], n_cand), device=bb.device)
+    cnt = torch.zeros((*bb.shape[:-1], n_cand), device=bb.device)
+    for pos in range(nsymb_pat):
+        actual = (int(tones[pos % len(tones)]) + pos * p.tone_hop_step) % p.m
+        e_this = [energy[..., int(off) + actual] for off in p.stream_offsets]
+        hit = e_this[0] >= peaks[0]
+        for e_s, peak in zip(e_this[1:], peaks[1:]):
+            hit = hit | (e_s >= peak)
+        contrib = torch.where(hit, sum(e_this) / e_total, 0.0)
+        met = met + contrib[..., pos: pos + n_cand]
+        cnt = cnt + hit[..., pos: pos + n_cand]
+    return met, cnt

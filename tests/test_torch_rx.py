@@ -14,7 +14,15 @@ Near CONFIG_16's threshold (test_torch_bicm.py) the rows whose first
 decode fails go through BICM-ID and DD from that chaotic state: for them
 iters is held above the first decode's cap only, and snr_db (the MER of
 their decisions) only on rows that decode; a row whose first decode
-converged keeps iters within one sweep (test_torch_ldpc.py)."""
+converged keeps iters within one sweep (test_torch_ldpc.py).
+
+The MFSK receive is held against the JAX chain's in test_torch_mfsk.py;
+here: the golden buffers of CONFIG_100-102, the carried-across state of
+CONFIG_100, the result's dtypes, and the process-wide matmul precision
+under two receiving threads."""
+
+import dataclasses
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +35,7 @@ from mercury_tpu.modem.rx import RxChain as JaxRx
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.convert import RX_BUFFERS, rx_state_from_numpy
 from mercury_tpu_torch.core.geometry import build_geometry as port_geometry
+from mercury_tpu_torch.modem import rx as rx_mod
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.tx import TxChain
 
@@ -60,13 +69,20 @@ def chains():
 
 
 def _buffer(g, esn0: float, seed: int, b: int = B):
+    """b frames at the bench.py delay in white noise at Es/N0 esn0; an MFSK
+    mode's at a symbol-aligned delay, esn0 then the channel SNR."""
     rng = np.random.default_rng(seed)
     payload = rng.integers(0, 256, (b, g.frame_bytes)).astype(np.uint8)
     tx = TxChain(port_geometry(g.spec.config), device="cpu")
     frames = tx.transmit(torch.as_tensor(payload)).numpy()
     n = g.nofdm * g.buffer_nsymb * g.interp
-    delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
-    buf = rng.standard_normal((b, n)) * sim.sigma_for_esn0(esn0)
+    if g.spec.is_mfsk:
+        delay = (g.preamble_nsymb + 2) * g.nofdm * g.interp
+        sigma = sim.sigma_for_channel_snr(frames[0], esn0, g.fs, g.bandwidth)
+    else:
+        delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
+        sigma = sim.sigma_for_esn0(esn0)
+    buf = rng.standard_normal((b, n)) * sigma
     buf[:, delay: delay + frames.shape[1]] += frames
     return buf.astype(np.float32), payload, delay
 
@@ -145,11 +161,12 @@ def check_golden(golden, cfg, density, estimator):
     assert res.snr_db[0].item() >= golden(f"{tag}_rx_snr")[0] - 0.75
 
 
-# every OFDM config at both pilot densities, and zero-forcing on
-# CONFIG_15/16 (CONFIG_3 and 9 at high density are the test above)
-GOLDEN = ([(cfg, HIGH_DENSITY, "auto") for cfg in range(17)
+# every config at both pilot densities, and zero-forcing on CONFIG_15/16
+# (CONFIG_3 and 9 at high density are the test above)
+ALL_CFGS = list(range(17)) + [100, 101, 102]
+GOLDEN = ([(cfg, HIGH_DENSITY, "auto") for cfg in ALL_CFGS
            if cfg not in (3, 9)]
-          + [(cfg, LOW_DENSITY, "auto") for cfg in range(17)]
+          + [(cfg, LOW_DENSITY, "auto") for cfg in ALL_CFGS]
           + [(15, HIGH_DENSITY, "reference"), (16, HIGH_DENSITY, "reference")])
 
 
@@ -159,8 +176,11 @@ def test_decodes_reference_buffer_every_mode(golden, cfg, density,
     check_golden(golden, cfg, density, estimator)
 
 
-def test_state_carried_across_from_jax(chains):
-    check_state_carried(chains(9), 12.0)
+# CONFIG_9 at 12 dB Es/N0; CONFIG_100 at -9 dB channel SNR (its
+# waterfall + 4 dB, tests/test_rx.py:135), batch 2 (705024 samples a row)
+@pytest.mark.parametrize("cfg,esn0,b", [(9, 12.0, B), (100, -9.0, 2)])
+def test_state_carried_across_from_jax(chains, cfg, esn0, b):
+    check_state_carried(chains(cfg), esn0, b)
 
 
 # tests/test_rx.py:64's clean points
@@ -171,7 +191,7 @@ def test_state_carried_across_top_of_ladder(chains, cfg, estimator, esn0):
     check_state_carried(chains(cfg, estimator), esn0)
 
 
-def check_state_carried(chain, esn0):
+def check_state_carried(chain, esn0, b=B):
     """The JAX chain's host constants, converted, equal the port's own
     buffers, load into a port chain and give the same receive results on
     one buffer at esn0 dB."""
@@ -187,7 +207,7 @@ def check_state_carried(chain, esn0):
     for t in fresh.state_dict().values():
         t.zero_()
     fresh.load_state_dict(state)
-    buf, _payload, _delay = _buffer(g, esn0, seed=1)
+    buf, _payload, _delay = _buffer(g, esn0, seed=1, b=b)
     a, b = rx.receive(torch.as_tensor(buf)), fresh.receive(torch.as_tensor(buf))
     for field in ("payload", "crc_ok", "delay", "freq_offset", "snr_db",
                   "iters"):
@@ -220,8 +240,6 @@ def test_mix_and_grid_stats_match_jax(chains):
     (0, {"deep_profile": "full"}, "item 8a"),   # round-3 deep scan
     (3, {"deep_profile": "c2f"}, "item 8a"),
     (9, {"cfo_range": "narrow"}, "item 13"),
-    (9, {"ctrl": True}, "item 11"),             # ctrl frames
-    (100, {}, "item 11"),                       # MFSK
 ])
 def test_out_of_slice_options_raise(cfg, kwargs, item):
     with pytest.raises(NotImplementedError,
@@ -239,3 +257,72 @@ def test_every_ldpc_algo_receives(ldpc_algo):
     buf, payload, _delay = _buffer(g, 17.0, seed=5)
     res = rx.receive(torch.as_tensor(buf))
     assert res.crc_ok.all() and (res.payload.numpy() == payload).all()
+
+
+def test_ctrl_outside_robust_raises():
+    """Control frames exist on ROBUST_0/1 only: ValueError on an OFDM mode,
+    as the JAX RxChain raises (tests/test_mfsk_ctrl.py:33)."""
+    with pytest.raises(ValueError):
+        JaxRx(build_geometry(9), ctrl=True)
+    with pytest.raises(ValueError, match="ROBUST_0/ROBUST_1"):
+        RxChain(port_geometry(9), device="cpu", ctrl=True)
+
+
+def test_decode_at_on_ofdm_raises(chains):
+    """The OFDM branch of decode_at is ROADMAP item 13."""
+    g, _jax_rx, rx = chains(9)
+    with pytest.raises(NotImplementedError, match=r"§1, item 13\)"):
+        rx.decode_at(torch.zeros((1, 1000)), torch.zeros(1, dtype=torch.int32),
+                     torch.zeros(1))
+
+
+@pytest.mark.parametrize("cfg,esn0", [(9, 12.0), (100, -9.0)])
+def test_result_dtypes_match_jax(chains, cfg, esn0):
+    """Every RxResult field has the JAX chain's dtype: delay and iters
+    int32."""
+    g, jax_rx, rx = chains(cfg)
+    buf, _payload, _delay = _buffer(g, esn0, seed=2, b=2)
+    res = rx.receive(torch.as_tensor(buf))
+    res_j = jax_rx.receive(jnp.asarray(buf))
+    for f in dataclasses.fields(res):
+        got = getattr(res, f.name)
+        want = np.asarray(getattr(res_j, f.name)).dtype
+        assert str(got.dtype).removeprefix("torch.") == str(want), f.name
+    assert res.delay.dtype == res.iters.dtype == torch.int32
+
+
+def test_matmul_precision_survives_two_threads():
+    """Thread A enters the receive's full-precision block, thread B enters,
+    A leaves: inside B the precision is still "highest"; after both leave
+    it is the caller's own setting again."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    a_in, b_in, a_out, b_checked = (threading.Event() for _ in range(4))
+    seen = {}
+
+    def thread_a():
+        with rx_mod._full_fp32_matmul():
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def thread_b():
+        a_in.wait(10)
+        with rx_mod._full_fp32_matmul():
+            b_in.set()
+            a_out.wait(10)
+            seen["inside_b"] = torch.get_float32_matmul_precision()
+        b_checked.set()
+
+    try:
+        threads = [threading.Thread(target=thread_a),
+                   threading.Thread(target=thread_b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(20)
+        assert b_checked.is_set()
+        assert seen["inside_b"] == "highest"
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)

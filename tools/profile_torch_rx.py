@@ -4,9 +4,11 @@
     PYTHONPATH=. python3 tools/profile_torch_rx.py --config 16 --esn0 31 20.5 \
         [--out DIR]
 
-For each Es/N0: a batch-256 capture buffer (chip_smoke.make_buffer, seed
-160), one first decode per row with DD and BICM-ID off (to count the rows it
-loses), 3 warm-up receives, 10 timed receives (host clock around the
+For each Es/N0 (an MFSK mode's channel SNR: --config 100 --esn0 -9 -13;
+--ctrl: its control frames): a
+batch-256 capture buffer (chip_smoke.make_buffer, seed 160), one first
+decode per row with DD and BICM-ID off, or on an MFSK mode without the
+runner-up sync candidate (to count the rows it loses), 3 warm-up receives, 10 timed receives (host clock around the
 receive, ending in a synchronize: min / median / max), then one receive
 under torch.profiler: device busy (the table's "Self CUDA time total"; a
 sum over rows would count an aten op and its kernel twice), idle share =
@@ -46,11 +48,13 @@ def timed(rx: RxChain, buf: torch.Tensor) -> float:
 
 
 def profile_point(cfg: int, esn0: float, dev: torch.device,
-                  out: pathlib.Path | None) -> None:
+                  out: pathlib.Path | None, ctrl: bool = False) -> None:
     g = build_geometry(cfg)
-    rx = RxChain(g, device=dev)
-    plain = RxChain(g, device=dev, dd=False, bicm_iters=0)
-    buf, payload, _delay = make_buffer(g, dev, esn0, 160)
+    rx = RxChain(g, device=dev, ctrl=ctrl)
+    plain = (RxChain(g, device=dev, ctrl=ctrl, mfsk_sync_cands=1)
+             if g.spec.is_mfsk
+             else RxChain(g, device=dev, dd=False, bicm_iters=0))
+    buf, payload, _delay = make_buffer(g, dev, esn0, 160, ctrl)
     first_ok = plain.receive(buf).crc_ok
     for _ in range(3):
         res = rx.receive(buf)
@@ -66,16 +70,19 @@ def profile_point(cfg: int, esn0: float, dev: torch.device,
                                       row_limit=25)
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
-        (out / f"profile_cfg{cfg}_{esn0}.txt").write_text(table)
+        tag = "_ctrl" if ctrl else ""
+        (out / f"profile_cfg{cfg}{tag}_{esn0}.txt").write_text(table)
     busy = total_ms(table, "Self CUDA")
     med = statistics.median(times)
     ok = res.crc_ok
-    print(f"CONFIG_{cfg} at {esn0} dB, batch {BATCH}: "
+    print(f"CONFIG_{cfg}{' ctrl' if ctrl else ''} at {esn0} dB, batch "
+          f"{BATCH}: "
           f"{int(ok.sum())}/{BATCH} decoded "
           f"(payloads equal: {bool(torch.equal(res.payload[ok], payload[ok]))}"
           f"); first decode failed on {int((~first_ok).sum())} rows, "
-          f"recovered {int((ok & ~first_ok).sum())}; BICM-ID / DD rows a "
-          f"receive {rec['bicm_rows']} / {rec['dd_rows']}; iters mean "
+          f"recovered {int((ok & ~first_ok).sum())}; BICM-ID / DD / MFSK "
+          f"runner-up rows a receive {rec['bicm_rows']} / {rec['dd_rows']} / "
+          f"{rec['mfsk_rows']}; iters mean "
           f"{res.iters.double().mean().item():.3f}")
     print(f"  receive ms min / median / max of 10: {min(times):.2f} / "
           f"{med:.2f} / {max(times):.2f}; profiled receive: device busy "
@@ -88,6 +95,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", type=int, default=16)
     ap.add_argument("--esn0", type=float, nargs="+", default=[31.0])
+    ap.add_argument("--ctrl", action="store_true")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -99,7 +107,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     dev = torch.device("cuda")
     for esn0 in args.esn0:
-        profile_point(args.config, esn0, dev, args.out)
+        profile_point(args.config, esn0, dev, args.out, args.ctrl)
     return 0
 
 
