@@ -15,9 +15,13 @@ build/mercury_tpu_torch/), then:
      then one complex rotation at the output positions. mix_fir_decimate
      is held at the buffer and frame sizes of every main path (CONFIG_3
      and 0, 9, 16, 13, 11, the MFSK modes 100 and 101/102, the control
-     frames of 100 and 101) and in the ACK/BREAK detector's form, and
-     deep_mf_score also at the refine shapes of CONFIG_11 (three preamble
-     symbols), 13 (two) and 16 (one);
+     frames of 100 and 101) and in the ACK/BREAK detector's form, with
+     per-row frequency offsets (+-45 Hz: the data FIR of decode_at at
+     CONFIG_0/3's, 9's and 100's sizes; the stride-1 "same" form of
+     to_baseband), and in the stride-1 "same" form over CONFIG_9's buffer
+     with either taps (to_baseband, measure_signal_dbm); deep_mf_score
+     also at the refine shapes of CONFIG_11 (three preamble symbols), 13
+     (two) and 16 (one), and at refine_decode's full-rate shape;
   2. drives the port's receive paths, TxChain.transmit -> awgn_passband ->
      RxChain.receive, with batch 256: CONFIG_3 (BPSK 4/16, noncoherent deep
      sync), CONFIG_9 (QPSK 8/16) and CONFIG_0 (BPSK 1/16, coherent deep
@@ -39,7 +43,14 @@ build/mercury_tpu_torch/), then:
      patterns on CONFIG_0 and 100 (tests/test_patterns.py's bars), CONFIG_0
      under the three Watterson presets (FER <= 0.125) and CONFIG_9 under
      "moderate" fading with and without the link's DD chain
-     (tests/test_dd.py:119's bars);
+     (tests/test_dd.py:119's bars). Then the rest of the chain surface:
+     the BER harness at 1024 frames a point, 0.5 dB either side of the
+     recorded waterfalls of CONFIG_9 baseband, CONFIG_0 passband and
+     CONFIG_100's control frames, and CONFIG_0's front_end_delta;
+     decode_at and refine_decode over 256 CONFIG_9 rows at +20 Hz;
+     cfo_range="narrow" on CONFIG_9 and 0 at +-30 Hz; measure_signal_dbm
+     on noise of known power; StreamReceiver on tests/test_stream.py's
+     three-frame stream; rx_diagnostics's bars;
   3. decodes the reference's CONFIG_0, 3 and 9 capture buffers, those of
      CONFIG_10-16 and 100-102 at both pilot densities, and CONFIG_15/16's
      with the zero-forcing estimator (tests/golden), to their reference
@@ -53,6 +64,7 @@ line is
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -62,11 +74,13 @@ import torch
 
 from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.core.modes import HIGH_DENSITY, LOW_DENSITY
-from mercury_tpu_torch import native
+from mercury_tpu_torch import native, obs
 from mercury_tpu_torch.channel import sim
+from mercury_tpu_torch.channel.ber import BerHarness
 from mercury_tpu_torch.dsp import kernels
 from mercury_tpu_torch.modem.patterns import PatternSignaler
 from mercury_tpu_torch.modem.rx import RxChain
+from mercury_tpu_torch.modem.stream import StreamReceiver
 from mercury_tpu_torch.modem.tx import TxChain
 
 BATCH = 256
@@ -99,6 +113,14 @@ PATH_KERNELS = {3: ("mix_fir_decimate", "deep_mf_score"),
                 11: ("mix_fir_decimate", "deep_mf_score"),
                 100: ("mix_fir_decimate",), 101: ("mix_fir_decimate",),
                 102: ("mix_fir_decimate",)}
+# Es/N0 of the cfo_range="narrow" receives at +-30 Hz: at 12 dB the JAX
+# chain itself loses rows (CONFIG_0: 3 of 64, CONFIG_9: 10 of 64, and 2 of
+# 64 at 16 dB; the port the same rows, wide or narrow:
+# tools/narrow_cfo_reference.py)
+NARROW_DB = 20.0
+# the chains whose data FIR phase 1 also holds with per-row offsets
+# (CONFIG_3's buffer and frame sizes are CONFIG_0's)
+FREQ_FORMS = ("CONFIG_3", "CONFIG_9", "CONFIG_100")
 # the matched-filter kernels' tensor-core arithmetic
 MF_FORM = ("TF32 one pass: wgmma m64nNk8 tf32 x tf32 -> f32 (A from "
            "registers, B from shared memory), operands rounded with cvt.rna")
@@ -208,13 +230,16 @@ def fir_window_samples(n: int, start: torch.Tensor, n_out: int,
 
 
 def fir_bound(b: int, n: int, start, n_out: int, stride: int, offset: int,
-              ntaps: int) -> dict:
+              ntaps: int, freq: bool = False) -> dict:
     """Bytes: the passband windows (4 B), the oscillator over their union
-    (8 B), taps, output (8 B); flops: 2 per sample mixed, 4 per tap of an
-    output (FP32)."""
+    (8 B), taps, per-row offsets (4 B), output (8 B); flops: 2 per sample
+    mixed (8 with a per-row offset: the complex product of the oscillator
+    and the rotation too; the sine and cosine, special-function work, are
+    not counted), 4 per tap of an output (FP32)."""
     pb_n, osc_n = fir_window_samples(n, start, n_out, stride, offset, ntaps)
-    return bound(4 * pb_n + 8 * osc_n + 4 * ntaps + 8 * b * n_out,
-                 2 * pb_n + 4 * b * n_out * ntaps, "FP32")
+    return bound(4 * pb_n + 8 * osc_n + 4 * ntaps + 8 * b * n_out
+                 + (4 * b if freq else 0),
+                 (8 if freq else 2) * pb_n + 4 * b * n_out * ntaps, "FP32")
 
 
 def fir_library(pb, _osc, taps, stride, g):
@@ -255,44 +280,62 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
     lib = native.load_library()
     out = {"max_abs_err": 0.0, "paths": {}}
 
-    def same_form(label, pb, osc, taps, g):
-        """The strided "same" form (every row from 0) of pb [BATCH, n]."""
+    def offsets():
+        """Per-row frequency offsets, uniform in +-45 Hz (float32 [BATCH])."""
+        return (torch.rand(BATCH, generator=gen, device=dev) - 0.5) * 90.0
+
+    def same_form(label, pb, osc, taps, g, stride=None, freq=False):
+        """The strided "same" form (every row from 0) of pb [BATCH, n],
+        stride g.interp unless given; freq: with per-row offsets (held to
+        1e-4 of the output scale; no library call takes them)."""
         n = pb.shape[1]
         ntaps = taps.shape[0]
-        args = (pb, osc, taps, g.interp)
-        err = (kernels.mix_fir_decimate(*args)
-               - kernels.mix_fir_decimate_ref(*args)).abs().max().item()
-        library = fir_library(*args, g)
-        lib_err = (library() - kernels.mix_fir_decimate(*args)).abs().max(
-            ).item()
-        assert err <= 1e-4, f"{label}: max abs err {err}"
-        assert lib_err <= 1e-4, f"{label}: conv1d yardstick differs by {lib_err}"
-        n_out = (n - 1) // g.interp + 1
+        stride = stride or g.interp
+        args = (pb, osc, taps, stride)
+        kw = dict(freq=offsets(), fs=g.fs) if freq else {}
+        want = kernels.mix_fir_decimate_ref(*args, **kw)
+        err = (kernels.mix_fir_decimate(*args, **kw) - want).abs().max().item()
+        limit = 1e-4 * (want.abs().max().item() if freq else 1.0)
+        assert err <= limit, f"{label}: max abs err {err} (limit {limit})"
+        del want
+        n_out = (n - 1) // stride + 1
         dst = torch.empty((BATCH, n_out), dtype=torch.complex64,
                           device=pb.device)
         st = {"max_abs_err": err, "n_ts": n_out,
-              "ms": cuda_ms(lambda: kernels.mix_fir_decimate(*args)),
+              "ms": cuda_ms(lambda: kernels.mix_fir_decimate(*args, **kw)),
               "kernel_ms": raw_ms(lambda: lib.mfd_launch(
                   pb.data_ptr(), osc.data_ptr(), taps.data_ptr(), None,
-                  dst.data_ptr(), BATCH, n, n_out, g.interp,
-                  (ntaps - 1) // 2, ntaps, kernels._stream(pb))),
-              "plain_ms": cuda_ms(lambda: kernels.mix_fir_decimate_ref(*args)),
-              "library_ms": cuda_ms(library)}
+                  kw["freq"].data_ptr() if freq else None, g.fs,
+                  dst.data_ptr(), BATCH, n, n_out, stride, (ntaps - 1) // 2,
+                  ntaps, kernels._stream(pb))),
+              "plain_ms": cuda_ms(lambda: kernels.mix_fir_decimate_ref(
+                  *args, **kw)),
+              "library_ms": None}
+        lib_text = "library: none (per-row offsets)"
+        if not freq:
+            library = fir_library(*args, g)
+            lib_err = (library() - kernels.mix_fir_decimate(*args)).abs().max(
+                ).item()
+            assert lib_err <= 1e-4, (
+                f"{label}: conv1d yardstick differs by {lib_err}")
+            st["library_ms"] = cuda_ms(library)
+            lib_text = (f"library (two calls: cuDNN conv1d [{BATCH},1,{n}] x "
+                        f"[2,1,{ntaps}] stride {stride}, then torch.complex * "
+                        f"rotation) {st['library_ms']:.4f} ms, agrees within "
+                        f"{lib_err:.3e}")
         st.update(fir_bound(BATCH, n, torch.zeros(BATCH, dtype=torch.int64,
                                                    device=pb.device),
-                            n_out, g.interp, (ntaps - 1) // 2, ntaps))
-        print(f"mix_fir_decimate {label} [{BATCH},{n}] s{g.interp} -> "
-              f"[{BATCH},{n_out}]: max abs err {err:.3e} (limit 1e-4); "
-              f"wrapper {st['ms']:.4f} ms, kernel alone "
+                            n_out, stride, (ntaps - 1) // 2, ntaps, freq))
+        print(f"mix_fir_decimate {label} [{BATCH},{n}] s{stride} -> "
+              f"[{BATCH},{n_out}]: max abs err {err:.3e} (limit "
+              f"{limit:.3e}); wrapper {st['ms']:.4f} ms, kernel alone "
               f"{st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.4f} ms; "
-              f"{bound_text(st, st['kernel_ms'])}; library (two calls: cuDNN "
-              f"conv1d [{BATCH},1,{n}] x [2,1,{ntaps}] stride {g.interp}, "
-              f"then torch.complex * rotation) {st['library_ms']:.4f} ms, "
-              f"agrees within {lib_err:.3e}")
+              f"{bound_text(st, st['kernel_ms'])}; {lib_text}")
         return st
 
-    def data_form(label, pb, osc, rx):
-        """The per-row-start data FIR of rx's frame (active_nsymb)."""
+    def data_form(label, pb, osc, rx, freq=False):
+        """The per-row-start data FIR of rx's frame (active_nsymb); freq:
+        with per-row offsets (held to 1e-4 of the output scale)."""
         g = rx.geom
         n = pb.shape[1]
         ntaps = rx._fir_data.shape[0]
@@ -301,26 +344,33 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
                               device=pb.device)
         row = dict(start=start, n_out=frame // g.interp,
                    offset=ntaps - 1 - (ntaps - 1) // 2)
+        if freq:
+            row.update(freq=offsets(), fs=g.fs)
         data = (pb, osc, rx._fir_data, g.interp)
-        err = (kernels.mix_fir_decimate(*data, **row)
-               - kernels.mix_fir_decimate_ref(*data, **row)).abs().max().item()
-        assert err <= 1e-4, f"{label} data FIR: max abs err {err}"
+        want = kernels.mix_fir_decimate_ref(*data, **row)
+        err = (kernels.mix_fir_decimate(*data, **row) - want).abs().max().item()
+        limit = 1e-4 * (want.abs().max().item() if freq else 1.0)
+        assert err <= limit, f"{label} data FIR: max abs err {err}"
+        del want
         dst = torch.empty((BATCH, row["n_out"]), dtype=torch.complex64,
                           device=pb.device)
         bd = fir_bound(BATCH, n, start, row["n_out"], g.interp, row["offset"],
-                       ntaps)
+                       ntaps, freq)
         st = {"data_err": err, "n_data": row["n_out"],
               "data_ms": cuda_ms(lambda: kernels.mix_fir_decimate(*data,
                                                                   **row)),
               "data_kernel_ms": raw_ms(lambda: lib.mfd_launch(
                   pb.data_ptr(), osc.data_ptr(), rx._fir_data.data_ptr(),
-                  start.data_ptr(), dst.data_ptr(), BATCH, n, row["n_out"],
-                  g.interp, row["offset"], ntaps, kernels._stream(pb))),
+                  start.data_ptr(),
+                  row["freq"].data_ptr() if freq else None, g.fs,
+                  dst.data_ptr(), BATCH, n, row["n_out"], g.interp,
+                  row["offset"], ntaps, kernels._stream(pb))),
               "data_plain_ms": cuda_ms(
                   lambda: kernels.mix_fir_decimate_ref(*data, **row)),
               "data_bound_ms": bd["bound_ms"]}
         print(f"mix_fir_decimate {label} data FIR -> [{BATCH},{row['n_out']}] "
-              f"at per-row starts: max abs err {err:.3e} (limit 1e-4); "
+              f"at per-row starts{' and offsets (+-45 Hz)' if freq else ''}: "
+              f"max abs err {err:.3e} (limit {limit:.3e}); "
               f"wrapper {st['data_ms']:.4f} ms, kernel alone "
               f"{st['data_kernel_ms']:.4f} ms, plain "
               f"{st['data_plain_ms']:.4f} ms; "
@@ -328,6 +378,7 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
               f"(per-row starts)")
         return st
 
+    dev = next(iter(chains.values())).device
     buffers = {}
     for label, rx in chains.items():
         g = rx.geom
@@ -344,6 +395,25 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
             out.update(st)
         out["max_abs_err"] = max(out["max_abs_err"], st["max_abs_err"])
         out["paths"][label] = st
+        # the forms of decode_at, refine_decode, to_baseband and
+        # measure_signal_dbm: the data FIR with per-row offsets (CONFIG_9,
+        # 0, 100), the stride-1 "same" form with either taps (CONFIG_9) and
+        # with per-row offsets (rx_diagnostics)
+        new = {}
+        if label in FREQ_FORMS:
+            new[f"{label} offsets"] = data_form(f"{label}", pb, osc, rx,
+                                                freq=True)
+        if label == "CONFIG_9":
+            for name, taps in (("TS", rx._fir_ts), ("data", rx._fir_data)):
+                new[f"{label} s1 {name}"] = same_form(
+                    f"{label} s1 {name} taps", pb, osc, taps, g, stride=1)
+            new[f"{label} s1 TS offsets"] = same_form(
+                f"{label} s1 TS taps, offsets (+-45 Hz)", pb, osc, rx._fir_ts,
+                g, stride=1, freq=True)
+        for key, st in new.items():
+            err = st.get("data_err", st.get("max_abs_err"))
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["paths"][key] = st
         del pb, osc
     buffers.clear()
     # the ACK/BREAK detector: both patterns with noise, two symbols in
@@ -363,24 +433,31 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
 
 
 def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
-                        refine_only: dict) -> dict:
+                        refine_only: dict, rx9: RxChain) -> dict:
     """Whole-buffer scan [256,14824]x[9,4,136] w=7140 and per-candidate
     refine [768,1088]x[3,4,136] w=272 (CONFIG_3, and CONFIG_9's refine),
-    and the refine of each chain in refine_only (label -> chain: CONFIG_11
+    the refine of each chain in refine_only (label -> chain: CONFIG_11
     [768,952]x[3,3,136], CONFIG_13 [768,816]x[3,2,136], CONFIG_16
-    [768,680]x[3,1,136]), with planted peaks: argmax equal on every planted
-    row, scores within rtol 1e-3 (atol 1e-3)."""
+    [768,680]x[3,1,136]), and refine_decode's full-rate shape on rx9
+    (CONFIG_9: [256,4864]x[1,4,1088] w=256, 513 lags: not a multiple of
+    the kernel's 256-lag tile), with planted peaks: argmax
+    equal on every planted row, scores within rtol 1e-3 (atol 1e-3)."""
     dev = rx.device
     aliases = (0.0, 93.75, -93.75)
-    out = {"max_abs_err": 0.0}
+    out = {"max_abs_err": 0.0, "shapes": {}}
     for label, chain, rows, freqs, window in (
             ("scan", rx, BATCH, np.arange(-4, 5) * 30.0, 7140),
             ("refine", rx, 3 * BATCH, aliases, 272),
             *((f"refine {name}", c, 3 * BATCH, aliases, 272)
-              for name, c in refine_only.items())):
-        tmpl = chain._mf_templates[:, ::8]
-        lp, s = tmpl.shape
-        bank = rx._rotated_bank(tmpl, freqs, 8)
+              for name, c in refine_only.items()),
+            ("refine_decode CONFIG_9", rx9, BATCH, None, 256)):
+        if freqs is None:               # the full-rate templates as they are
+            bank = chain._mf_templates[None]
+            lp, s = bank.shape[1:]
+        else:
+            tmpl = chain._mf_templates[:, ::8]
+            lp, s = tmpl.shape
+            bank = rx._rotated_bank(tmpl, freqs, 8)
         seg_len = 2 * window + lp * s
         seg = torch.complex(torch.randn((rows, seg_len), generator=gen,
                                         device=dev),
@@ -413,6 +490,9 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
         elif label == "refine":
             out.update(refine_ms=k_ms, refine_kernel_ms=raw,
                        refine_plain_ms=p_ms, refine_bound_ms=bd["bound_ms"])
+        out["shapes"][label] = {"ms": k_ms, "kernel_ms": raw,
+                                "plain_ms": p_ms, "bound_ms": bd["bound_ms"],
+                                "max_abs_err": err}
         print(f"deep_mf_score {label} [{rows},{seg_len}]x{list(bank.shape)} "
               f"w={window}: max abs err {err:.3e}, argmax equal on {rows} "
               f"planted rows; wrapper {k_ms:.4f} ms, kernel alone "
@@ -849,6 +929,295 @@ def drive_fading(dev: torch.device) -> dict:
     return {"launches": launches}
 
 
+def path_launches(fn):
+    """Run fn() with the launch counts set to 0 just before it; -> (its
+    result, the counts read just after it)."""
+    kernels.reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, dict(kernels.LAUNCHES)
+
+
+def drive_ber(dev: torch.device) -> dict:
+    """BerHarness at batch 256, 1024 frames a point, 0.5 dB either side of
+    the JAX harness's recorded waterfall (FER < 0.1 above it, > 0.1 below):
+    CONFIG_9 baseband (1.5 dB, docs/ber_r4b.json), CONFIG_0 passband
+    (parameter -4.7508 dB, FER 0.0957 there at 1024 frames, the record of
+    the coherent acquisition in docs/ber_r5.json; docs/ber_r4b.json's
+    -4.0008 predates it) and the control frames of CONFIG_100 (-12.5 dB,
+    docs/ber_r5.json); then CONFIG_0's front_end_delta within 0.05 dB of
+    the recorded -4.999 dB."""
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for label, cfg, ctrl, mid, base in (
+            ("CONFIG_9 baseband", 9, False, 1.5, True),
+            ("CONFIG_0 passband", 0, False, -4.750776578036306, False),
+            ("CONFIG_100 ctrl", 100, True, -12.5, False)):
+        h = BerHarness(cfg, batch=BATCH, ctrl=ctrl, device=dev)
+        run = h.run_point_baseband if base else h.run_point
+        fer = {}
+        for esn0 in (mid + 0.5, mid - 0.5):
+            t0 = time.perf_counter()
+            p, n = path_launches(lambda: run(esn0, 4 * BATCH))
+            dt = time.perf_counter() - t0
+            for k in KERNELS:
+                launches[k] += n[k]
+            fer[esn0] = p.fer
+            print(f"BER {label} at {esn0:+.4f} dB: FER {p.fer:.4f} BER "
+                  f"{p.ber:.6f} over {p.frames} frames in {dt:.2f} s; "
+                  f"launches {n}")
+            assert p.frames == 4 * BATCH
+        assert fer[mid + 0.5] < 0.1 < fer[mid - 0.5], (label, fer)
+        if not base:
+            assert launches["mix_fir_decimate"] > 0
+        out[label] = fer
+    h0 = BerHarness(0, batch=BATCH, device=dev)
+    delta, n = path_launches(h0.front_end_delta)
+    for k in KERNELS:
+        launches[k] += n[k]
+    print(f"front_end_delta CONFIG_0: {delta:.4f} dB (recorded -4.999, "
+          f"limit 0.05 dB)")
+    assert abs(delta - (-4.999)) <= 0.05, delta
+    return {"launches": launches, "fer": out, "delta": delta}
+
+
+def timed_runs(fn, reps: int = 3) -> tuple:
+    """fn() reps times, each ending in a synchronize -> (last result,
+    host ms of each)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return res, times
+
+
+def drive_chain_surface(dev: torch.device) -> dict:
+    """CONFIG_9 at batch 256: decode_at on frames at +20 Hz (the offset as
+    applied) at the known delay, and refine_decode on sibling rows cut as
+    link/node.py:483-496 cuts them (transmit_batch frames back to back,
+    row k drifted 37 * (k % 7) samples, the next frame after it, +20 Hz,
+    margin 256): every row decodes its payload, refine_decode's delays are
+    the drifts. cfo_range="narrow" on CONFIG_9 and 0 at +30 / -30 Hz
+    (half the rows each) at NARROW_DB: every row decodes. measure_signal_dbm on white noise of sigma 0.1 within 0.1 dB
+    of 10*log10(2 sigma^2 sum(h^2) / 1 mW)."""
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def count(n):
+        for k in KERNELS:
+            launches[k] += n[k]
+
+    g = build_geometry(9)
+    tx, rx = TxChain(g, device=dev), RxChain(g, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    payload = torch.randint(0, 256, (BATCH, g.frame_bytes), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    frames = tx.transmit(payload)
+    f_len = frames.shape[1]
+    f_app = round(20.0 * f_len / g.fs) * g.fs / f_len
+    delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
+    buf = sim.awgn_passband(sim.apply_cfo(frames, g.fs, g.fc, 20.0),
+                            sim.sigma_for_esn0(12.0), delay,
+                            g.nofdm * g.buffer_nsymb * g.interp, gen)
+    freq = torch.full((BATCH,), f_app, device=dev)
+    (at, t_at), n = path_launches(lambda: timed_runs(
+        lambda: rx.decode_at(buf, torch.full((BATCH,), delay - 8,
+                                             device=dev), freq)))
+    count(n)
+    assert bool(at[1].all()) and torch.equal(at[0], payload), "decode_at"
+    assert n["mix_fir_decimate"] == 3, n
+    print(f"decode_at CONFIG_9 at +{f_app:.3f} Hz, batch {BATCH}: every row "
+          f"decoded, payloads equal; {['%.2f' % t for t in t_at]} ms; "
+          f"launches {n} over 3 calls")
+    # sibling rows as the link cuts them: row k holds frame k of a
+    # transmit_batch, drifted 37 * (k % 7) samples past its nominal slot
+    # at `margin`, and frame k + 1 after a 37-sample gap
+    batch_frames = tx.transmit_batch(payload)
+    drift, margin = 37, 256
+    buf_len = g.nofdm * g.buffer_nsymb * g.interp
+    shift = drift * (torch.arange(BATCH, device=dev) % 7)
+    rows = torch.zeros((BATCH, buf_len), device=dev)
+    for k in range(BATCH):
+        at_k = margin + int(shift[k])
+        rows[k, at_k: at_k + f_len] = batch_frames[k]
+        nxt = at_k + f_len + drift
+        rows[k, nxt: nxt + f_len] = batch_frames[(k + 1) % BATCH]
+    rows = sim.apply_cfo(rows, g.fs, g.fc, 20.0)
+    rows = rows + 0.02 * torch.randn(rows.shape, generator=gen, device=dev)
+    f_air = round(20.0 * buf_len / g.fs) * g.fs / buf_len
+    (ref, t_ref), n = path_launches(lambda: timed_runs(
+        lambda: rx.refine_decode(rows, torch.full((BATCH,), margin,
+                                                  device=dev),
+                                 torch.full((BATCH,), f_air, device=dev),
+                                 margin)))
+    count(n)
+    want_delay = margin + shift
+    assert bool(ref[1].all()) and torch.equal(ref[0], payload), "refine"
+    assert torch.equal(ref[5].long(), want_delay), "refine_decode delays"
+    assert n["deep_mf_score"] == 3 and n["mix_fir_decimate"] == 3, n
+    print(f"refine_decode CONFIG_9 at +{f_air:.3f} Hz, {BATCH} sibling rows "
+          f"drifted 0-222 samples, window {margin}: every row decoded, "
+          f"delays equal the drifts; {['%.2f' % t for t in t_ref]} ms; "
+          f"launches {n} over 3 calls")
+    out = {"decode_at_ms": min(t_at), "refine_decode_ms": min(t_ref)}
+    for cfg in (9, 0):
+        gc = build_geometry(cfg)
+        txc = TxChain(gc, device=dev)
+        pay = torch.randint(0, 256, (BATCH, gc.frame_bytes), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        fr = txc.transmit(pay)
+        half = BATCH // 2
+        fr = torch.cat([sim.apply_cfo(fr[:half], gc.fs, gc.fc, 30.0),
+                        sim.apply_cfo(fr[half:], gc.fs, gc.fc, -30.0)])
+        d = ((gc.preamble_nsymb + 2) * gc.nofdm + 50) * gc.interp
+        bufc = sim.awgn_passband(fr, sim.sigma_for_esn0(NARROW_DB), d,
+                                 gc.nofdm * gc.buffer_nsymb * gc.interp, gen)
+        rxn = RxChain(gc, device=dev, cfo_range="narrow")
+        (res, t_n), n = path_launches(lambda: timed_runs(
+            lambda: rxn.receive(bufc)))
+        count(n)
+        assert bool(res.crc_ok.all()) and torch.equal(res.payload, pay), (
+            f"narrow CONFIG_{cfg}: {int(res.crc_ok.sum())}/{BATCH}")
+        assert all(n[k] > 0 for k in PATH_KERNELS[cfg]), n
+        fo = res.freq_offset
+        print(f"cfo_range narrow CONFIG_{cfg} at +30/-30 Hz, {NARROW_DB} dB, "
+              f"batch {BATCH}: "
+              f"every row decoded, payloads equal; freq_offset "
+              f"{fo[:half].mean().item():+.3f} / {fo[half:].mean().item():+.3f}"
+              f" Hz; receive {['%.2f' % t for t in t_n]} ms; launches {n}")
+        out[f"narrow_{cfg}_ms"] = min(t_n)
+    sigma = 0.1
+    noise = sigma * torch.randn((BATCH, buf_len), generator=gen, device=dev)
+    (dbm, t_m), n = path_launches(lambda: timed_runs(
+        lambda: rx.measure_signal_dbm(noise)))
+    count(n)
+    h2 = float((rx._fir_ts.double() ** 2).sum())
+    want = 10 * np.log10(2 * sigma ** 2 * h2 / 1e-3)
+    # a row's estimate spreads ~0.07 dB (the TS FIR passes ~1/20 of the
+    # band: ~4000 independent samples a row); the batch mean ~0.005 dB
+    mean_db = 10 * np.log10(torch.mean(10 ** (dbm.double() / 10)).item())
+    assert abs(mean_db - want) <= 0.1, (mean_db, want)
+    assert (dbm - want).abs().max().item() <= 0.5, (dbm, want)
+    assert n["mix_fir_decimate"] == 3, n
+    print(f"measure_signal_dbm [{BATCH},{buf_len}] noise sigma {sigma}: "
+          f"mean {mean_db:.4f} dBm (rows {dbm.min().item():.4f} .. "
+          f"{dbm.max().item():.4f}), analytic {want:.4f} (limits 0.1 / 0.5 "
+          f"dB); {['%.2f' % t for t in t_m]} ms")
+    out["launches"] = launches
+    return out
+
+
+def drive_stream_and_obs(dev: torch.device) -> dict:
+    """StreamReceiver (batch-1 receives on the card) on
+    tests/test_stream.py:12-37's stream: three CONFIG_9 frames with 30000-
+    sample gaps in 10 ms chunks, then 200 chunks of silence: 3/3 decoded in
+    order. Then rx_diagnostics on tests/test_obs_gbf.py:55-74's buffer:
+    crc_ok, the constellation and channel-magnitude shapes, sync metric
+    peak above 0.7, a 257-bin waterfall."""
+    g = build_geometry(9)
+    tx = TxChain(g, device=dev)
+    payloads = torch.stack([torch.full((g.frame_bytes,), 10 * i,
+                                       dtype=torch.uint8)
+                            for i in range(1, 4)]).to(dev)
+    frames = tx.transmit(payloads).cpu().numpy()
+    gap = np.zeros(30000, np.float32)
+    rng = np.random.default_rng(0)
+    stream = np.concatenate(
+        [gap] + sum([[f.astype(np.float32), gap] for f in frames], []))
+    stream = stream + 0.002 * rng.standard_normal(len(stream)).astype(
+        np.float32)
+    rx = RxChain(g, device=dev)
+    receives = []
+    receive = rx.receive
+
+    def counted(buf):
+        t0 = time.perf_counter()
+        res = receive(buf)
+        torch.cuda.synchronize()
+        receives.append(((time.perf_counter() - t0) * 1e3,
+                         bool(res.crc_ok[0]), int(res.iters[0])))
+        return res
+
+    rx.receive = counted
+    sr = StreamReceiver(g, rx=rx)
+
+    def run():
+        got = []
+        for pos in range(0, len(stream), 480):
+            got += sr.feed(stream[pos: pos + 480])
+        for _ in range(200):
+            got += sr.feed(np.zeros(480, np.float32))
+        return got
+
+    t0 = time.perf_counter()
+    got, n = path_launches(run)
+    dt = time.perf_counter() - t0
+    assert len(got) == 3, f"stream: {len(got)} of 3 frames"
+    for i, res in enumerate(got):
+        assert torch.equal(res.payload[0], payloads[i]), f"stream frame {i}"
+    assert n["mix_fir_decimate"] > 0, n
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2] if xs else float("nan")
+
+    steady = [r[0] for r in receives[1:]]
+    hit = [r for r in receives[1:] if r[1]]
+    miss = [r for r in receives[1:] if not r[1]]
+    print(f"StreamReceiver CONFIG_9: 3/3 frames in order over "
+          f"{len(stream) + 96000} samples in {dt:.2f} s, {len(receives)} "
+          f"batch-1 receives, median {median(steady):.2f} ms (first "
+          f"{receives[0][0]:.2f}): {len(hit)} that decoded a frame, median "
+          f"{median([r[0] for r in hit]):.2f} ms, LDPC sweeps "
+          f"{[r[2] for r in hit]}; {len(miss)} that did not, median "
+          f"{median([r[0] for r in miss]):.2f} ms, sweeps "
+          f"{sorted(set(r[2] for r in miss))}; launches {n}")
+    # one receive of a window without a frame under the profiler: device
+    # busy (the table's "Self CUDA time total") against its host time
+    quiet = torch.as_tensor(
+        0.002 * rng.standard_normal((1, sr.buf_len)).astype(np.float32))
+    receive(quiet)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        receive(quiet)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=3)
+    m = re.search(r"Self CUDA time total: ([\d.]+)(s|ms|us)", table)
+    assert m, f"the profiler saw no device time:\n{table}"
+    busy = float(m.group(1)) * {"s": 1e3, "ms": 1.0, "us": 1e-3}[m.group(2)]
+    t_plain = min(timed_runs(lambda: receive(quiet))[1])
+    print(f"StreamReceiver CONFIG_9, a window without a frame: receive "
+          f"{t_plain:.2f} ms (min of 3), under the profiler {wall:.2f} ms; "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / t_plain:.3f} of the unprofiled receive")
+    launches = dict(n)
+    frame = tx.transmit(torch.arange(g.frame_bytes, dtype=torch.uint8,
+                                     device=dev)[None])
+    buf = sim.awgn_passband(frame, sim.sigma_for_esn0(14), 7000,
+                            g.nofdm * g.buffer_nsymb * g.interp,
+                            torch.Generator(device=dev).manual_seed(0))
+    d, n = path_launches(lambda: obs.rx_diagnostics(RxChain(g, device=dev),
+                                                    buf[0].cpu().numpy()))
+    assert d["crc_ok"]
+    assert d["constellation"].shape == (g.n_data,)
+    assert d["channel_mag"].shape == (g.nsymb, g.nc)
+    assert d["sync_metric"].max() > 0.7
+    assert d["waterfall"].shape[1] == 257
+    for k in KERNELS:
+        launches[k] += n[k]
+    print(f"rx_diagnostics CONFIG_9 at 14 dB: crc ok, delay {d['delay']}, "
+          f"snr {d['snr_db']:.3f} dB, sync metric peak "
+          f"{d['sync_metric'].max():.4f}, constellation {d['constellation'].shape}"
+          f", channel_mag {d['channel_mag'].shape}; launches {n}")
+    return {"launches": launches,
+            "stream_receive_ms": steady[len(steady) // 2]}
+
+
 def decode_golden(cfg: int, dev: torch.device, density: int = HIGH_DENSITY,
                   estimator: str = "auto") -> None:
     rx = RxChain(build_geometry(cfg, density, estimator=estimator),
@@ -896,7 +1265,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     stats = {"mix_fir_decimate": check_mix_fir_decimate(
                  chains, gen, PatternSignaler(build_geometry(0), device=dev)),
-             "deep_mf_score": check_deep_mf_score(rx3, gen, refine_only),
+             "deep_mf_score": check_deep_mf_score(rx3, gen, refine_only,
+                                                  chains["CONFIG_9"]),
              "deep_mf_max": check_deep_mf_max(rx0, gen),
              "pilot_cand_score": check_pilot_cand_score(rx0, gen)}
     del rx0, rx3, refine_only, chains
@@ -913,6 +1283,9 @@ def main() -> int:
     runs.append(drive_second_candidate(dev)["launches"])
     runs.append(drive_patterns(dev)["launches"])
     runs.append(drive_fading(dev)["launches"])
+    runs.append(drive_ber(dev)["launches"])
+    runs.append(drive_chain_surface(dev)["launches"])
+    runs.append(drive_stream_and_obs(dev)["launches"])
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     for cfg in (0, 3, 9):
         decode_golden(cfg, dev)

@@ -14,14 +14,22 @@ import torch
 
 
 def awgn_passband(frame: torch.Tensor, sigma: float, delay: int,
-                  buffer_len: int, generator: torch.Generator) -> torch.Tensor:
+                  buffer_len: int, generator: torch.Generator,
+                  fill: str = "noise") -> torch.Tensor:
     """Place frame [B, n] into a [B, buffer_len] capture buffer at `delay`
     and add white noise of std `sigma` everywhere (reference
-    apply_with_delay). The JAX function's fill="signal" (used by the BER
-    harness) is ported with it (ROADMAP.md §1, item 12)."""
+    apply_with_delay). fill="signal" also adds, before the delay, frame
+    samples at random indices (drawn from `generator` after the noise), as
+    the reference pads that region, stressing false sync locks."""
     b, n = frame.shape
     buf = sigma * torch.randn((b, buffer_len), generator=generator,
                               dtype=frame.dtype, device=frame.device)
+    if fill == "signal":
+        idx = torch.randint(0, n, (b, delay), generator=generator,
+                            device=frame.device)
+        buf[:, :delay] += torch.gather(frame, 1, idx)
+    elif fill != "noise":
+        raise ValueError("fill must be 'noise' or 'signal'")
     buf[:, delay:delay + n] += frame
     return buf
 

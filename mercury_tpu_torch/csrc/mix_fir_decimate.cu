@@ -5,8 +5,12 @@
 // in one pass over the real passband. This kernel adds a per-row start so the
 // same code serves both front-end FIRs of the receiver:
 //   out[b, m] = sum_j taps[j] * x[b, start[b] + m*stride + offset - j]
-//   x[b, i]   = pb[b, i] * osc[i]   for 0 <= i < n, else 0
-// where osc is the float64-phase oscillator table rounded to complex64.
+//   x[b, i]   = pb[b, i] * osc[i] * rot[b, i]   for 0 <= i < n, else 0
+// where osc is the float64-phase oscillator table rounded to complex64 and
+// rot[b, i] = e^{j w[b] i} an optional per-row frequency offset (freq[b] Hz
+// at sample rate fs, w[b] = 2 pi freq[b] / fs in float64; NULL for none,
+// rot = 1): the JAX chain mixes a row at fc + f[b] where it decodes at a
+// known offset.
 // Time-sync FIR: start = 0 for every row (a NULL start), offset = (T-1)//2
 // ("same" alignment). Data FIR: start = clipped frame delay, offset =
 // T-1-(T-1)//2 (segment alignment of fir_decimate_segment).
@@ -37,6 +41,15 @@
 // register renames and the tap reads fixed offsets; other strides and
 // lengths take a generic instantiation that reloads the window per tap.
 //
+// The per-row rotation is computed where a sample is staged: w in float64,
+// a float64 anchor w*lo at the block's first window sample, reduced to
+// [-pi, pi], then the float32 phase anchor + w*q of window sample q (|w*q|
+// stays below ~40 rad for offsets up to 150 Hz, so the phase error is
+// ~1e-6 rad) and one sincosf. At w = 0 the rotation is exactly 1 and osc * rot is osc bit for
+// bit. With offsets a block takes one row in either form: two rows sharing
+// each oscillator read, each turning it by its own rotation, were slower at
+// stride 1 on an H100 and no faster at stride 4.
+//
 // Every output keeps the direct form's arithmetic: taps in order j = 0..T-1,
 // acc = fmaf(tap, p*o, acc) with the same float32 product p*o, and a sample
 // outside [0, n) contributes fmaf(tap, 0, acc) == acc. So the result is
@@ -50,12 +63,34 @@
 #define MFD_THREADS 128
 #define MFD_U 4                     // consecutive outputs per thread
 #define MFD_TILE (MFD_THREADS * MFD_U)
-#define MFD_ROWS 2                  // rows per block when all start at 0
+// rows per block when all start at 0 and have no per-row offset
+#define MFD_ROWS 2
 #define MFD_MAX_SMEM (227 * 1024)
 #define MFD_MIN_BLOCKS 2            // resident blocks an SM must fit
 
 // index inside a phase, one pad slot after every 16
 __device__ __forceinline__ int mfd_skew(int i) { return i + (i >> 4); }
+
+// A row's rotation over a block's window: w = freq * (2 pi / fs) and
+// a0 = w*lo reduced to [-pi, pi] in float64, then float32 steps w.
+struct MfdRot {
+  float a0, w;
+};
+
+__device__ __forceinline__ MfdRot mfd_rot(float freq, double w_hz,
+                                          long long lo) {
+  const double w = (double)freq * w_hz;
+  double a = w * (double)lo;
+  a -= 6.283185307179586 * rint(a * 0.15915494309189535);
+  return {(float)a, (float)w};
+}
+
+// o * e^{j (a0 + w q)}
+__device__ __forceinline__ float2 mfd_turn(float2 o, MfdRot r, int q) {
+  float sn, cs;
+  sincosf(fmaf(r.w, (float)q, r.a0), &sn, &cs);
+  return make_float2(o.x * cs - o.y * sn, o.x * sn + o.y * cs);
+}
 
 // The taps jg .. jg+NW-1 (one per phase when the stride is compiled in;
 // NW = 1 and a full window reload per tap otherwise) applied to a thread's
@@ -93,19 +128,22 @@ __device__ __forceinline__ void mfd_taps(const float2* x, const float* taps,
 }
 
 // S, T: stride and taps, both compiled in (the receive path's) or both 0
-// (the runtime arguments); R: rows per block, all starting at 0 when R > 1.
-template <int S, int T, int R>
+// (the runtime arguments); R: rows per block, all starting at 0 when R > 1;
+// F: per-row frequency offsets are given (then R == 1).
+template <int S, int T, int R, bool F>
 __global__ void __launch_bounds__(MFD_THREADS, MFD_MIN_BLOCKS)
 mix_fir_decimate_kernel(const float* __restrict__ pb,
                         const float2* __restrict__ osc,
                         const float* __restrict__ taps,
                         const int64_t* __restrict__ start,
+                        const float* __restrict__ freq, double w_hz,
                         float2* __restrict__ out, int batch, int n,
                         int n_out, int stride_rt, int offset, int ntaps_rt,
                         int plen, bool vec) {
   extern __shared__ float2 xs[];          // [R][stride][plen] mixed window
   __shared__ float s_taps[MFD_MAX_TAPS];
   constexpr int NW = S > 0 ? S : 1;
+  static_assert(!F || R == 1, "a per-row offset takes one row a block");
   const int stride = S > 0 ? S : stride_rt;
   const int ntaps = T > 0 ? T : ntaps_rt;
   const int b0 = blockIdx.y * R;
@@ -118,6 +156,8 @@ mix_fir_decimate_kernel(const float* __restrict__ pb,
   // stage: window sample q is input index lo + q of each of the R rows
   const long long lo = (start != nullptr ? start[b0] : 0)
                        + (long long)m0 * stride + offset - (ntaps - 1);
+  MfdRot rot{0.f, 0.f};
+  if constexpr (F) rot = mfd_rot(freq[b0], w_hz, lo);
   if (vec) {
     // 16-byte loads: chunk c holds input indices a0 + 4c .. a0 + 4c + 3
     const long long a0 = lo & ~3LL;
@@ -164,9 +204,11 @@ mix_fir_decimate_kernel(const float* __restrict__ pb,
         if (q >= 0 && q < win) {
           const int slot = (q % stride) * plen + mfd_skew(q / stride);
 #pragma unroll
-          for (int r = 0; r < R; ++r)
+          for (int r = 0; r < R; ++r) {
+            const float2 oe = F ? mfd_turn(o[e], rot, q) : o[e];
             xs[r * stride * plen + slot] = make_float2(
-                __fmul_rn(p[r][e], o[e].x), __fmul_rn(p[r][e], o[e].y));
+                __fmul_rn(p[r][e], oe.x), __fmul_rn(p[r][e], oe.y));
+          }
         }
       }
     }
@@ -182,8 +224,9 @@ mix_fir_decimate_kernel(const float* __restrict__ pb,
         float xr = 0.f, xi = 0.f;
         if (inside && b0 + r < batch) {
           const float p = __ldg(pb + (size_t)(b0 + r) * n + i);
-          xr = __fmul_rn(p, o.x);
-          xi = __fmul_rn(p, o.y);
+          const float2 oe = F ? mfd_turn(o, rot, q) : o;
+          xr = __fmul_rn(p, oe.x);
+          xi = __fmul_rn(p, oe.y);
         }
         xs[r * stride * plen + slot] = make_float2(xr, xi);
       }
@@ -215,11 +258,11 @@ mix_fir_decimate_kernel(const float* __restrict__ pb,
   }
 }
 
-template <int S, int T, int R>
+template <int S, int T, int R, bool F>
 static int mfd_run(const float* pb, const float2* osc, const float* taps,
-                   const int64_t* start, float2* out, int batch, int n,
-                   int n_out, int stride, int offset, int ntaps,
-                   cudaStream_t stream) {
+                   const int64_t* start, const float* freq, double w_hz,
+                   float2* out, int batch, int n, int n_out, int stride,
+                   int offset, int ntaps, cudaStream_t stream) {
   // a phase holds the largest tile's window, (MFD_TILE-1)*stride + ntaps
   // samples over `stride` phases, plus its skew
   const int len = MFD_TILE - 1 + (ntaps + stride - 1) / stride;
@@ -228,7 +271,7 @@ static int mfd_run(const float* pb, const float2* osc, const float* taps,
   if (smem > MFD_MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        mix_fir_decimate_kernel<S, T, R>,
+        mix_fir_decimate_kernel<S, T, R, F>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -236,39 +279,55 @@ static int mfd_run(const float* pb, const float2* osc, const float* taps,
   const bool vec = (uintptr_t)pb % 16 == 0 && (uintptr_t)osc % 16 == 0
                    && n % 4 == 0;
   dim3 grid((n_out + MFD_TILE - 1) / MFD_TILE, (batch + R - 1) / R);
-  mix_fir_decimate_kernel<S, T, R><<<grid, MFD_THREADS, smem, stream>>>(
-      pb, osc, taps, start, out, batch, n, n_out, stride, offset, ntaps,
-      plen, vec);
+  mix_fir_decimate_kernel<S, T, R, F><<<grid, MFD_THREADS, smem, stream>>>(
+      pb, osc, taps, start, freq, w_hz, out, batch, n, n_out, stride, offset,
+      ntaps, plen, vec);
   return (int)cudaGetLastError();
 }
 
-// rows per block: MFD_ROWS when every row starts at 0 (start == NULL)
+// rows per block: MFD_ROWS when every row starts at 0 (start == NULL) and
+// has no offset (freq == NULL), else one
 template <int S, int T>
 static int mfd_rows(const float* pb, const float2* osc, const float* taps,
-                    const int64_t* start, float2* out, int batch, int n,
-                    int n_out, int stride, int offset, int ntaps,
-                    cudaStream_t s) {
+                    const int64_t* start, const float* freq, double w_hz,
+                    float2* out, int batch, int n, int n_out, int stride,
+                    int offset, int ntaps, cudaStream_t s) {
+  if (freq != nullptr)
+    return mfd_run<S, T, 1, true>(pb, osc, taps, start, freq, w_hz, out,
+                                  batch, n, n_out, stride, offset, ntaps, s);
   if (start == nullptr)
-    return mfd_run<S, T, MFD_ROWS>(pb, osc, taps, start, out, batch, n,
-                                   n_out, stride, offset, ntaps, s);
-  return mfd_run<S, T, 1>(pb, osc, taps, start, out, batch, n, n_out, stride,
-                          offset, ntaps, s);
+    return mfd_run<S, T, MFD_ROWS, false>(pb, osc, taps, start, freq, w_hz,
+                                          out, batch, n, n_out, stride,
+                                          offset, ntaps, s);
+  return mfd_run<S, T, 1, false>(pb, osc, taps, start, freq, w_hz, out,
+                                 batch, n, n_out, stride, offset, ntaps, s);
 }
 
-// start: int64 [batch], or NULL for a start of 0 on every row
+// start: int64 [batch], or NULL for a start of 0 on every row; freq: float32
+// [batch] per-row offsets in Hz at sample rate fs, or NULL for none
 extern "C" int mfd_launch(const float* pb, const float2* osc,
                           const float* taps, const int64_t* start,
-                          float2* out, int batch, int n, int n_out,
-                          int stride, int offset, int ntaps, void* stream) {
+                          const float* freq, double fs, float2* out,
+                          int batch, int n, int n_out, int stride, int offset,
+                          int ntaps, void* stream) {
   if (ntaps < 1 || ntaps > MFD_MAX_TAPS || stride < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
+  if (freq != nullptr && !(fs > 0.0)) return (int)cudaErrorInvalidValue;
   if (batch == 0 || n_out == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  // the receive path's stride and FIR length compiled in; any other at run
-  // time
+  // radians a sample per Hz, as the plain version forms it
+  const double w_hz = freq != nullptr ? 6.283185307179586 / fs : 0.0;
+  // the receive path's FIR length compiled in at its strides (4: the
+  // decimating FIRs; 1: to_baseband and the signal-strength meter); any
+  // other at run time
   if (stride == 4 && ntaps == MFD_RECV_TAPS)
-    return mfd_rows<4, MFD_RECV_TAPS>(pb, osc, taps, start, out, batch, n,
-                                      n_out, stride, offset, ntaps, s);
-  return mfd_rows<0, 0>(pb, osc, taps, start, out, batch, n, n_out, stride,
-                        offset, ntaps, s);
+    return mfd_rows<4, MFD_RECV_TAPS>(pb, osc, taps, start, freq, w_hz, out,
+                                      batch, n, n_out, stride, offset, ntaps,
+                                      s);
+  if (stride == 1 && ntaps == MFD_RECV_TAPS)
+    return mfd_rows<1, MFD_RECV_TAPS>(pb, osc, taps, start, freq, w_hz, out,
+                                      batch, n, n_out, stride, offset, ntaps,
+                                      s);
+  return mfd_rows<0, 0>(pb, osc, taps, start, freq, w_hz, out, batch, n,
+                        n_out, stride, offset, ntaps, s);
 }

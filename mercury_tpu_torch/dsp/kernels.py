@@ -9,6 +9,8 @@ wrapper call that reaches the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from mercury_tpu_torch import native
@@ -43,49 +45,72 @@ def _require(cond: bool, msg: str) -> None:
 # Fused mixer + decimating FIR
 # ---------------------------------------------------------------------------
 
+def row_rotation(freq: torch.Tensor, fs: float,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """e^{j 2 pi freq[b] idx / fs} as complex64: freq [B] Hz, idx [B, L] (or
+    [L]) sample indices; the phase in float64, reduced mod 2 pi before the
+    rounding."""
+    w = freq.to(torch.float64) * (2.0 * math.pi / fs)
+    ph = torch.remainder(w[:, None] * idx.to(torch.float64), 2.0 * math.pi)
+    return torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+
+
 def mix_fir_decimate_ref(pb: torch.Tensor, osc: torch.Tensor,
                          taps: torch.Tensor, stride: int,
                          start: torch.Tensor | None = None,
                          n_out: int | None = None,
-                         offset: int | None = None) -> torch.Tensor:
+                         offset: int | None = None,
+                         freq: torch.Tensor | None = None,
+                         fs: float | None = None) -> torch.Tensor:
     """Plain version: mix with the oscillator table, then the strided 'same'
     FIR (start None) or the segment FIR at per-row starts.
 
     pb [B, n] real; osc [n] complex; taps [T] real. start None gives
     fir_same(pb*osc)[:, ::stride]. With a start [B] (and n_out, offset),
     out[b, m] = sum_j taps[j] * x[b, start[b] + m*stride + offset - j] for
-    m < n_out, x = pb*osc zero outside [0, n)."""
-    x = pb * osc
+    m < n_out, x = pb*osc zero outside [0, n). With freq [B] (Hz, at sample
+    rate fs) row b mixes with osc[i] * e^{j 2 pi freq[b] i / fs} instead of
+    osc[i] (row_rotation)."""
+    n = pb.shape[-1]
     if start is None:
+        if freq is None:
+            x = pb * osc
+        else:
+            rot = row_rotation(freq, fs, torch.arange(n, device=pb.device))
+            x = pb * (osc * rot)
         return ops.fir_same_strided(x, taps, stride)
     ntaps = taps.shape[0]
-    n = pb.shape[-1]
     seg_len = n_out * stride + ntaps - 1
     lo = offset - (ntaps - 1)                    # seg[k] = x[start + lo + k]
-    pad_l = max(-(int(start.min()) + lo), 0)
-    pad_r = max(int(start.max()) + lo + seg_len - n, 0)
-    xp = torch.nn.functional.pad(x, (pad_l, pad_r))
-    idx = (start + lo + pad_l)[:, None] + torch.arange(
-        seg_len, device=pb.device)[None]
-    seg = torch.gather(xp, 1, idx)
+    idx = (start + lo)[:, None] + torch.arange(seg_len, device=pb.device)
+    inside = (idx >= 0) & (idx < n)
+    at = torch.clamp(idx, 0, n - 1)
+    o = osc[at]
+    if freq is not None:
+        o = o * row_rotation(freq, fs, idx)
+    seg = torch.where(inside, torch.gather(pb, 1, at) * o, 0)
     return ops.fir_decimate_segment(seg, taps, stride)
 
 
 def mix_fir_decimate(pb: torch.Tensor, osc: torch.Tensor, taps: torch.Tensor,
                      stride: int, start: torch.Tensor | None = None,
                      n_out: int | None = None,
-                     offset: int | None = None) -> torch.Tensor:
+                     offset: int | None = None,
+                     freq: torch.Tensor | None = None,
+                     fs: float | None = None) -> torch.Tensor:
     """Real passband [B, n] -> complex baseband [B, n_out]: mixer and
     decimating FIR in one pass (see mix_fir_decimate_ref for the function).
 
-    CUDA: float32 pb, complex64 osc, float32 taps, int64 start, all on one
-    device; output complex64. A block per tile of 512 outputs of one row
-    (of two rows for the "same" form, which share the oscillator) mixes the
-    tile's input window once into shared memory and filters it from
-    there."""
+    CUDA: float32 pb, complex64 osc, float32 taps, int64 start, float32 freq
+    (with fs), all on one device; output complex64. A block per tile of 512
+    outputs of one row (of two rows for the "same" form without offsets,
+    which share the oscillator) mixes the tile's input window once into
+    shared memory and filters it from there; a per-row offset turns each
+    sample's oscillator value by the row's rotation (its phase in float64
+    from freq and fs, in the kernel) as it is staged."""
     if pb.device.type == "cpu":
         return mix_fir_decimate_ref(pb, osc, taps, stride, start, n_out,
-                                    offset)
+                                    offset, freq, fs)
     _require(pb.device.type == "cuda", f"unsupported device {pb.device}")
     b, n = pb.shape
     ntaps = taps.shape[0]
@@ -97,6 +122,10 @@ def mix_fir_decimate(pb: torch.Tensor, osc: torch.Tensor, taps: torch.Tensor,
         raise ValueError("a per-row start needs n_out and offset")
     else:
         operands.append((start, torch.int64, (b,)))
+    if freq is not None:
+        _require(fs is not None and fs > 0,
+                 "a per-row frequency offset needs fs")
+        operands.append((freq, torch.float32, (b,)))
     for t, dt, shape in operands:
         _require(t.device == pb.device and t.dtype == dt
                  and tuple(t.shape) == shape and t.is_contiguous(),
@@ -107,6 +136,8 @@ def mix_fir_decimate(pb: torch.Tensor, osc: torch.Tensor, taps: torch.Tensor,
     # a NULL start: every row starts at 0, and rows share oscillator reads
     err = lib.mfd_launch(pb.data_ptr(), osc.data_ptr(), taps.data_ptr(),
                          None if start is None else start.data_ptr(),
+                         None if freq is None else freq.data_ptr(),
+                         0.0 if freq is None else float(fs),
                          out.data_ptr(), b, n, n_out, stride, offset, ntaps,
                          _stream(pb))
     _check(err, "mix_fir_decimate")

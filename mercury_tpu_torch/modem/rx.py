@@ -26,6 +26,12 @@ at every symbol-aligned start (`sync.mfsk_sync_metric`), decodes at the
 best (data FIR, FFT, energy-detection soft demod, LDPC, CRC16) and decodes
 the rows that fail once more at the runner-up start.
 
+decode_at decodes each row at a known delay and frequency offset: the data
+FIR kernel mixes the frame's segment at fc + f[b] (the oscillator table
+turned by the row's rotation). refine_decode first re-syncs each row with
+the known-preamble matched filter over its full-rate segment
+(`deep_mf_score`), as the link does for the sibling frames of a batch.
+
 JAX's jit/vmap/lax control flow becomes eager code over a written-out batch
 axis. Float32 matmuls run at full precision (no TF32) inside `receive`.
 """
@@ -292,10 +298,11 @@ def _roadmap(item: int | str, what: str) -> NotImplementedError:
 class RxChain(nn.Module):
     """Per-mode RX program for every mode (CONFIG_0-16, 100-102).
 
-    Options as in the JAX RxChain, with its default "wide" acquisition
-    profile: the 93.75 Hz coarse-CFO alias is arbitrated by a 3-way
-    matched-filter vote and 4 CFO hypotheses. deep_sync (auto: CONFIG_0-4)
-    adds the whole-buffer known-preamble scan: noncoherent, or with
+    Options as in the JAX RxChain. cfo_range "wide" (default) arbitrates
+    the 93.75 Hz coarse-CFO alias by a 3-way matched-filter vote and 4 CFO
+    hypotheses; "narrow" (~+-45 Hz) takes 2 Schmidl-Cox candidates, no
+    alias, 2 CFO hypotheses and narrower deep-scan grids. deep_sync (auto:
+    CONFIG_0-4) adds the whole-buffer known-preamble scan: noncoherent, or with
     deep_coherent (auto: CONFIG_0) the coherent scan, pilot-lattice
     arbitration and the CRC-gated rescue decode.
 
@@ -315,7 +322,7 @@ class RxChain(nn.Module):
     fails is decoded once more at the runner-up sync candidate. Deep sync,
     DD and BICM-ID do not apply (dd or bicm_iters raise ValueError).
 
-    Options outside this port raise NotImplementedError naming their
+    deep_profile "c2f" and "full" raise NotImplementedError naming their
     ROADMAP item. `recovery` counts the rows re-decoded by BICM-ID, by DD
     and at the MFSK runner-up candidate, summed over passes and calls
     (reset_recovery sets them to 0).
@@ -348,8 +355,6 @@ class RxChain(nn.Module):
         if mfsk_soft not in ("sumexp", "maxlog"):
             raise ValueError("mfsk_soft must be 'sumexp' or 'maxlog'")
         # the MFSK receive reads neither option
-        if cfo_range == "narrow" and not is_mfsk:
-            raise _roadmap(13, "cfo_range='narrow'")
         if deep_profile != "pruned" and not is_mfsk:
             raise _roadmap("8a", f"deep_profile={deep_profile!r}")
         if deep_sync is None:
@@ -385,6 +390,7 @@ class RxChain(nn.Module):
             raise ValueError("dd_window spans must be odd")
         self.geom = g
         self.zf = zf
+        self.cfo_range = cfo_range
         self.deep_sync = bool(deep_sync)
         self.deep_coherent = self.deep_sync and bool(deep_coherent)
         self.ldpc_algo = ldpc_algo
@@ -464,23 +470,108 @@ class RxChain(nn.Module):
         ph = (2 * math.pi / g.fs) * (g.fc + f) * t
         return pb * math.sqrt(2.0) * _cis(ph)
 
-    def extract_frame_decimated_pb(self, pb: torch.Tensor, delay: torch.Tensor,
-                                   n_symb: int) -> torch.Tensor:
-        """Mixer + data FIR over the frame only: the decimated baseband
-        [B, (n_symb + preamble)*Nofdm] of the frame starting at per-row
-        `delay` (interp samples), equal to fir_same(mix(pb))[delay::interp].
-        The start is clipped as the JAX chain clips its padded slice."""
+    def _row_freq(self, freq_offset, b: int) -> torch.Tensor | None:
+        """A frequency offset ([B] or scalar, Hz) as float32 [B] on the
+        chain's device, or None for None or a Python 0 (the oscillator table
+        alone, the kernel's form without offsets)."""
+        if freq_offset is None or (isinstance(freq_offset, (int, float))
+                                   and freq_offset == 0.0):
+            return None
+        f = torch.as_tensor(freq_offset, dtype=torch.float32,
+                            device=self.device)
+        return f.expand(b).contiguous() if f.ndim == 0 else f.contiguous()
+
+    def to_baseband(self, pb, freq_offset=0.0,
+                    data_fir: bool = True) -> torch.Tensor:
+        """Passband [B, n] -> interp-rate complex baseband [B, n], mixed at
+        fc + freq_offset ([B] or scalar, Hz; float64 phase) and filtered by
+        the data FIR (or the TS FIR): fir_same(mix(pb, f)), the kernel's
+        stride-1 "same" form."""
+        pb = self._as_buffer(pb)
+        b, n = pb.shape
+        taps = self._fir_data if data_fir else self._fir_ts
+        return kernels.mix_fir_decimate(
+            pb, self._osc_const(n), taps, 1,
+            freq=self._row_freq(freq_offset, b), fs=self.geom.fs)
+
+    @torch.no_grad()
+    def measure_signal_dbm(self, pb) -> torch.Tensor:
+        """Idle-channel signal strength in dBm re 1 mW, [B, n] -> [B]
+        (reference measure_signal_only): the mean complex power of the TS-FIR
+        baseband at the full rate, 10*log10(P / 1 mW)."""
+        bb = self.to_baseband(pb, data_fir=False)
+        p = torch.mean(bb.real ** 2 + bb.imag ** 2, dim=-1)
+        return 10.0 * torch.log10(torch.clamp(p, min=1e-30) / 1e-3)
+
+    def extract_frame(self, bb: torch.Tensor,
+                      delay: torch.Tensor) -> torch.Tensor:
+        """The frame of interp-rate baseband bb [B, n] at per-row delay,
+        decimated to the base rate [B, (active_nsymb + P)*Nofdm]; the start
+        clamped into the row as lax.dynamic_slice clamps it."""
+        g = self.geom
+        frame_len = g.nofdm * (self.active_nsymb + g.preamble_nsymb) * g.interp
+        start = torch.clamp(torch.as_tensor(delay, device=bb.device).long(),
+                            0, bb.shape[-1] - frame_len)
+        idx = start[:, None] + torch.arange(0, frame_len, g.interp,
+                                            device=bb.device)
+        return torch.gather(bb, 1, idx)
+
+    def _frame_segment(self, n: int, delay: torch.Tensor, n_symb: int):
+        """(start [B], segment length, output length) of the data FIR over
+        the frame of n_symb symbols at delay: the start clipped as the JAX
+        chain clips its padded slice."""
         g = self.geom
         ntaps = self._fir_data.shape[0]
         center = (ntaps - 1) // 2
         frame_interp = g.nofdm * (n_symb + g.preamble_nsymb) * g.interp
         seg_len = frame_interp + ntaps - 1
-        n_pad = pb.shape[-1] + center + ntaps
-        start = torch.clamp(delay.long(), 0, n_pad - seg_len).contiguous()
+        start = torch.clamp(delay.long(), 0, n + center + ntaps - seg_len)
+        return start.contiguous(), seg_len, frame_interp // g.interp
+
+    def extract_frame_decimated(self, iq: torch.Tensor, delay: torch.Tensor,
+                                n_symb: int) -> torch.Tensor:
+        """Complex IQ [B, n] (already mixed) -> the decimated frame
+        [B, (n_symb + P)*Nofdm] at per-row delay: the data FIR over the
+        frame's segment only, equal to fir_same(iq)[delay::interp]. For a
+        caller that holds IQ; the decode paths mix and filter in the kernel
+        (extract_frame_decimated_pb)."""
+        ntaps = self._fir_data.shape[0]
+        center = (ntaps - 1) // 2
+        start, seg_len, _ = self._frame_segment(iq.shape[-1], delay, n_symb)
+        iq_pad = torch.nn.functional.pad(iq, (center, ntaps))
+        idx = start[:, None] + torch.arange(seg_len, device=iq.device)
+        return ops.fir_decimate_segment(torch.gather(iq_pad, 1, idx),
+                                        self._fir_data, self.geom.interp)
+
+    def extract_frame_decimated_pb(self, pb: torch.Tensor, delay: torch.Tensor,
+                                   n_symb: int,
+                                   freq: torch.Tensor | None = None
+                                   ) -> torch.Tensor:
+        """Mixer + data FIR over the frame only: the decimated baseband
+        [B, (n_symb + preamble)*Nofdm] of the frame starting at per-row
+        `delay` (interp samples), equal to fir_same(mix(pb, freq))
+        [delay::interp] (freq [B] Hz, or None for fc alone). The start is
+        clipped as the JAX chain clips its padded slice."""
+        g = self.geom
+        ntaps = self._fir_data.shape[0]
+        start, _, n_out = self._frame_segment(pb.shape[-1], delay, n_symb)
         return kernels.mix_fir_decimate(
             pb, self._osc_const(pb.shape[-1]), self._fir_data, g.interp,
-            start=start, n_out=frame_interp // g.interp,
-            offset=ntaps - 1 - center)
+            start=start, n_out=n_out, offset=ntaps - 1 - (ntaps - 1) // 2,
+            freq=freq, fs=g.fs)
+
+    def mix_segment(self, pb: torch.Tensor, start: torch.Tensor,
+                    length: int,
+                    freq: torch.Tensor | None = None) -> torch.Tensor:
+        """mix(pb, freq)[b, start[b] : start[b] + length] without mixing the
+        rest of the row: the float64-phase oscillator turned by each row's
+        offset (kernels.row_rotation; freq None for fc alone), as the FIR
+        kernel mixes."""
+        idx = start.long()[:, None] + torch.arange(length, device=pb.device)
+        osc = self._osc_const(pb.shape[-1])[idx]
+        if freq is not None:
+            osc = osc * kernels.row_rotation(freq, self.geom.fs, idx)
+        return torch.gather(pb, 1, idx) * osc
 
     def demod_grid(self, frame_decim: torch.Tensor) -> torch.Tensor:
         """Decimated frame [B, (P+S)*Nofdm] -> carrier grid [B, S, Nc]
@@ -806,7 +897,8 @@ class RxChain(nn.Module):
         return (tmpl_d.to(torch.complex128)[None] * rot).to(torch.complex64)
 
     def _coherent_banks(self, mf_d: int):
-        """CONFIG_0's CFO grid [F] (+-120 Hz in 4 Hz steps) and its banks at
+        """CONFIG_0's CFO grid [F] (4 Hz steps over +-120 Hz, or +-45 Hz
+        with cfo_range "narrow") and its banks at
         mf_d: the preamble as one symbol [F, 1, Lp*S_d], rotated in absolute
         time, the pilot-only symbols [F, Nsymb, S_d], rotated in local
         symbol time, and that bank prepared for the pilot kernel
@@ -817,7 +909,8 @@ class RxChain(nn.Module):
         if banks is None:
             tmpl_d = self._mf_templates[:, ::mf_d]
             lp, s_d = tmpl_d.shape
-            n_h = int(round(120.0 / DEEP_COH_GRID_HZ))
+            span = 120.0 if self.cfo_range == "wide" else 45.0
+            n_h = int(round(span / DEEP_COH_GRID_HZ))
             grid = np.arange(-n_h, n_h + 1) * DEEP_COH_GRID_HZ
             coh = self._rotated_bank(tmpl_d, grid, mf_d,
                                      self._mf_templates.shape[1])
@@ -879,7 +972,7 @@ class RxChain(nn.Module):
         cand_step = ts_dec * sc_scan
         met, cfo_arr = sync.schmidl_cox_metric(bb_ts, g, decim=ts_dec,
                                                scan=sc_scan)
-        n_k = 3
+        n_k = 3 if self.cfo_range == "wide" else 2
         sym_cand = max((g.nofdm * g.interp) // cand_step, 1)
         pos = torch.arange(met.shape[-1], device=dev)
         met_work = met
@@ -926,7 +1019,8 @@ class RxChain(nn.Module):
         seg_d_len = 2 * win_d + lp * s_d
         max_start = (n_ts * ts_dec - seg_d_len * mf_d) // mf_d * mf_d
         alias = g.fs / ((g.nfft // 2) * g.interp)
-        alias_offsets = (0.0, alias, -alias)
+        alias_offsets = ((0.0, alias, -alias) if self.cfo_range == "wide"
+                         else (0.0,))
         tmpl_bank = self._rotated_bank(tmpl_d, alias_offsets, mf_d)
         lag = torch.arange(seg_d_len, device=dev)
         seg_rows, start_rows, cfo_rows = [], [], []
@@ -956,7 +1050,9 @@ class RxChain(nn.Module):
         if self.deep_sync:
             # whole-buffer known-preamble scan over a static CFO grid; its
             # hypotheses join the arbitration
-            grid_f = np.arange(-4, 5) * DEEP_GRID_HZ          # +-120 Hz
+            span = 120.0 if self.cfo_range == "wide" else 30.0
+            n_h = int(round(span / DEEP_GRID_HZ))
+            grid_f = np.arange(-n_h, n_h + 1) * DEEP_GRID_HZ
             bank_g = self._rotated_bank(tmpl_d, grid_f, mf_d)
             win_g = (n_ts // mf_s - lp * s_d) // 2
             seg_g = bb_ts[:, : (2 * win_g + lp * s_d) * mf_s: mf_s]
@@ -993,8 +1089,10 @@ class RxChain(nn.Module):
         freq_m = torch.where(torch.abs(freq_m) > 0.1, freq_m, 0.0)
         # CFO hypotheses (Moose is unambiguous within +-half a subcarrier)
         subc = float(np.float32(g.bandwidth / g.nc))
-        hyps = torch.stack([freq_m, torch.zeros_like(freq_m), freq_m + subc,
-                            freq_m - subc])
+        hyps = [freq_m, torch.zeros_like(freq_m)]
+        if self.cfo_range == "wide":
+            hyps += [freq_m + subc, freq_m - subc]
+        hyps = torch.stack(hyps)
         if self.zf:
             eq, variance, mean_h, var_full, freq = self._zf_pick(hyps, rotate)
             flat = slope = None               # no DD pass with zero-forcing
@@ -1073,11 +1171,13 @@ class RxChain(nn.Module):
                 torch.zeros(b, dtype=torch.float32, device=grid.device),
                 torch.ones(b, dtype=torch.float32, device=grid.device))
 
-    def _decode_mfsk_at(self, pb: torch.Tensor, delay: torch.Tensor):
-        """The MFSK frame of each row at delay [B] (interp samples): data
-        FIR, FFT, soft demod, LDPC, CRC -> (payload, crc_ok, iters, snr,
-        mean_h)."""
-        frame = self.extract_frame_decimated_pb(pb, delay, self.active_nsymb)
+    def _decode_mfsk_at(self, pb: torch.Tensor, delay: torch.Tensor,
+                        freq: torch.Tensor | None = None):
+        """The MFSK frame of each row at delay [B] (interp samples), mixed
+        at fc + freq [B] (None: fc alone): data FIR, FFT, soft demod, LDPC,
+        CRC -> (payload, crc_ok, iters, snr, mean_h)."""
+        frame = self.extract_frame_decimated_pb(pb, delay, self.active_nsymb,
+                                                freq)
         llr, snr, mean_h = self.decode_mfsk(self.demod_grid(frame))
         payload, crc_ok, iters, _bits, _conv = self.llr_to_payload(llr)
         return payload, crc_ok, iters, snr, mean_h
@@ -1091,17 +1191,56 @@ class RxChain(nn.Module):
     @torch.no_grad()
     def decode_at(self, pb_buffer, delay, freq_offset):
         """Decode the frame of each row of pb_buffer [B, n] at a known delay
-        [B] (interp samples) and frequency offset [B] (Hz) -> (payload,
-        crc_ok, iters, snr_db, mean_h). MFSK modes only, at offset 0, as
-        their receive decodes; the OFDM branch and nonzero offsets are
-        ROADMAP item 13 (reading the offsets is one host sync)."""
-        if not self.geom.spec.is_mfsk:
-            raise _roadmap(13, "decode_at on an OFDM mode")
-        if bool(torch.any(torch.as_tensor(freq_offset) != 0)):
-            raise _roadmap(13, "decode_at at a nonzero frequency offset")
-        return self._decode_mfsk_at(
-            self._as_buffer(pb_buffer),
-            torch.as_tensor(delay, device=self.device).long())
+        [B] (interp samples) and frequency offset [B] or scalar (Hz; each
+        row mixed at fc + offset, float64 phase; a Python 0 mixes at fc
+        alone) -> (payload, crc_ok, iters, snr_db,
+        mean_h). An OFDM mode demaps with the LLR calibration, runs
+        BICM-ID and the DD passes as configured, and reports the SNR of the
+        JAX decode_at: the MER under zero-forcing, else the pilot residual
+        (var_full on PSK modes), not receive's MER on QAM modes."""
+        g = self.geom
+        pb = self._as_buffer(pb_buffer)
+        b = pb.shape[0]
+        delay = torch.as_tensor(delay, device=self.device).long().reshape(b)
+        freq = self._row_freq(freq_offset, b)
+        with _full_fp32_matmul():
+            if g.spec.is_mfsk:
+                return self._decode_mfsk_at(pb, delay, freq)
+            frame = self.extract_frame_decimated_pb(pb, delay,
+                                                    self.active_nsymb, freq)
+            llr, (flat, slope, data, variance, mean_h, var_full) = \
+                self._ofdm_llr(self.demod_grid(frame))
+            (payload, crc_ok, iters, real_bits, data, variance, var_full,
+             mean_h) = self._decode_llr_dd(llr, flat, slope, data, variance,
+                                           var_full, mean_h)
+            if self.zf:
+                snr = self._mer_snr(real_bits, data)
+            else:
+                var = (var_full if g.spec.amplitude_restoration
+                       else variance)
+                snr = 10.0 * torch.log10(1.0 / torch.clamp(var, min=1e-30))
+        return payload, crc_ok, iters, snr, mean_h
+
+    @torch.no_grad()
+    def refine_decode(self, rows, coarse_delay, freq, window: int):
+        """Re-sync and decode the sibling frames of a batch (JAX
+        refine_decode_jit): each row's delay is refined by the known-preamble
+        matched filter over the full-rate IQ within +-window samples of its
+        coarse delay [B], the row mixed at fc + freq ([B] or scalar; its
+        segment only), then decode_at at the refined delay - 8 ->
+        (payload, crc_ok, iters, snr_db, mean_h, delay [B] int32,
+        score [B])."""
+        pb = self._as_buffer(rows)
+        b, n = pb.shape
+        lp, s = self._mf_templates.shape
+        seg_len = 2 * window + lp * s
+        freq = self._row_freq(freq, b)
+        coarse = torch.as_tensor(coarse_delay, device=self.device).long()
+        start = torch.clamp(coarse - window, 0, max(n - seg_len, 0))
+        seg = self.mix_segment(pb, start, seg_len, freq)
+        d, score = sync.matched_filter_refine_seg(seg, start,
+                                                  self._mf_templates, window)
+        return (*self.decode_at(pb, d - 8, freq), d.to(torch.int32), score)
 
     def _receive_mfsk(self, pb: torch.Tensor) -> RxResult:
         """MFSK receive: the time-sync FIR, the preamble tone metric at

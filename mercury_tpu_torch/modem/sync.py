@@ -165,6 +165,33 @@ def matched_filter_refine_bank(seg: torch.Tensor, start: torch.Tensor,
     return delay, torch.gather(score, -1, best[..., None])[..., 0] / lp
 
 
+def matched_filter_refine(bb: torch.Tensor, coarse_delay: torch.Tensor,
+                          templates: torch.Tensor, geom: ModeGeometry,
+                          window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Refine a coarse delay with the known-preamble matched filter: bb
+    [B, n] interp-rate baseband, coarse_delay [B], templates [Lp, S] the
+    preamble symbol waveforms (interp rate, GI included) -> (delay [B],
+    score [B]), the best lag within +-window (coherent per preamble symbol,
+    noncoherent across them). The segment start is clipped into the row."""
+    lp, s = templates.shape
+    seg_len = 2 * window + lp * s
+    n = bb.shape[-1]
+    start = torch.clamp(coarse_delay.long() - window, 0, max(n - seg_len, 0))
+    idx = start[:, None] + torch.arange(seg_len, device=bb.device)
+    return matched_filter_refine_seg(torch.gather(bb, 1, idx), start,
+                                     templates, window)
+
+
+def matched_filter_refine_seg(seg: torch.Tensor, start: torch.Tensor,
+                              templates: torch.Tensor, window: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """matched_filter_refine over a segment already cut: seg
+    [B, 2*window + Lp*S], start [B] the absolute offset of seg[0]."""
+    delay, score = matched_filter_refine_bank(seg, start, templates[None],
+                                              window)
+    return delay[:, 0], score[:, 0]
+
+
 def moose_cfo(frame_decim: torch.Tensor, geom: ModeGeometry,
               pad_map: torch.Tensor) -> torch.Tensor:
     """Fine fractional CFO (Hz) from the preamble half-symbol repetition

@@ -154,6 +154,22 @@ class TxChain(nn.Module):
         return ops.fir_same(f1, self.fir_tx2).to(self.dtype)
 
     @torch.no_grad()
+    def transmit_batch(self, payload_bytes: torch.Tensor) -> torch.Tensor:
+        """Frames for back-to-back transmission, [B, frame_bytes] ->
+        [B, total_frame_size]: the TX FIR cascade runs over the concatenated
+        stream with one frame copy of padding at each end (the reference's
+        send_batch, arq_common.cc:2236-2248), so frame boundaries carry
+        their neighbours' filter tails. Concatenate the rows for the air.
+        Rows must be full width (ValueError)."""
+        payload_bytes = torch.as_tensor(payload_bytes, device=self.gen.device)
+        if payload_bytes.shape[-1] != self.geom.frame_bytes:
+            raise ValueError("transmit_batch requires full-width payload rows")
+        frames = self.modulate(self.encode_bits(self.frame_bits(payload_bytes)))
+        b, f = frames.shape
+        stream = torch.cat([frames[0], frames.reshape(-1), frames[-1]])[None]
+        return self.filter_single(stream)[0, f: f + b * f].reshape(b, f)
+
+    @torch.no_grad()
     def transmit(self, payload_bytes: torch.Tensor,
                  filtered: bool = True) -> torch.Tensor:
         """payload bytes [B, <=frame_bytes] -> passband [B, total_frame_size]

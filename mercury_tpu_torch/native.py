@@ -28,9 +28,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: (name, argument types); every entry returns cudaError_t
 _SIGNATURES = {
-    # pb, osc, taps, start (or NULL: every row at 0), out, batch, n, n_out,
-    # stride, offset, ntaps, stream
-    "mfd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # pb, osc, taps, start (or NULL: every row at 0), freq (float32 Hz, or
+    # NULL: no per-row offset), fs, out, batch, n, n_out, stride, offset,
+    # ntaps, stream
+    "mfd_launch": (_P, _P, _P, _P, _P, ctypes.c_double, _P, _I, _I, _I, _I,
+                   _I, _I, _P),
     # seg, tmpl, ce, ef, out, batch, num_a, seg_len, lp, s, n_cand, n_cols,
     # stream
     "dmf_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -142,6 +142,86 @@ def test_mix_fir_decimate_kernel_tiles_and_starts(cuda_device, geom, stride,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("batch", [1, 300])
+def test_mix_fir_decimate_kernel_row_freq(cuda_device, geom, stride, batch):
+    """The per-row frequency form (offsets 0 and up to +-45 Hz) against the
+    plain version (float64 phase; the kernel's float32 in-tile phase is
+    within ~1e-6 rad: atol 1e-5, rtol 1e-4), 'same' form and per-row
+    starts; a row at 0 Hz equals the form without offsets bit for bit."""
+    rng = np.random.default_rng(stride * 7 + batch)
+    n = 9001
+    pb = torch.as_tensor(rng.standard_normal((batch, n)).astype(np.float32),
+                         device=cuda_device)
+    osc = torch.as_tensor(_osc(geom, n), device=cuda_device)
+    taps = torch.as_tensor(geom.fir_rx_data.astype(np.float32),
+                           device=cuda_device)
+    ntaps = taps.shape[0]
+    freq = torch.as_tensor(rng.uniform(-45.0, 45.0, batch).astype(np.float32),
+                           device=cuda_device)
+    freq[0] = 0.0
+    start = torch.as_tensor(rng.integers(-3000, n + 500, batch),
+                            device=cuda_device)
+    before = kernels.LAUNCHES["mix_fir_decimate"]
+    for row in ({}, dict(start=start, n_out=1500,
+                         offset=ntaps - 1 - (ntaps - 1) // 2)):
+        got = kernels.mix_fir_decimate(pb, osc, taps, stride, **row,
+                                       freq=freq, fs=geom.fs)
+        want = kernels.mix_fir_decimate_ref(pb, osc, taps, stride, **row,
+                                            freq=freq, fs=geom.fs)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+        plain = kernels.mix_fir_decimate(pb, osc, taps, stride, **row)
+        assert torch.equal(got[0], plain[0])
+    assert kernels.LAUNCHES["mix_fir_decimate"] == before + 4
+
+
+@pytest.mark.cuda
+def test_deep_mf_score_kernel_refine_decode_shape(cuda_device):
+    """refine_decode's full-rate shape at CONFIG_9: [rows, 4864] x
+    [1, 4, 1088], window 256 (513 lags: two whole 256-lag tiles and one
+    lag): scores rtol/atol 1e-3, argmax lag equal on every row."""
+    rng = np.random.default_rng(11)
+    rows, window = 24, 256
+    seg, bank = _deep_case(11, 1, 4, 1088, window, rows, (0, 0, 0))
+    lags = rng.integers(0, 2 * window + 1, rows)
+    lags[0] = 0                         # _deep_case's plant on row 0
+    for r, lag in enumerate(lags):
+        seg[r, lag: lag + 4 * 1088] += 3.0 * bank[0].reshape(-1)
+    seg_t = torch.as_tensor(seg, device=cuda_device)
+    bank_t = torch.as_tensor(bank, device=cuda_device)
+    got = kernels.deep_mf_score(seg_t, bank_t, window)
+    want = kernels.deep_mf_score_ref(seg_t, bank_t, window)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(got.argmax(-1)[:, 0].cpu(), torch.as_tensor(lags))
+
+
+@pytest.mark.cuda
+def test_decode_at_and_refine_decode_on_card_match_cpu(cuda_device):
+    """CONFIG_9 frames at +20 Hz, batch 8: decode_at and refine_decode on
+    the card equal the CPU's plain run in crc_ok, payload and delays."""
+    g = build_geometry(9)
+    gen = torch.Generator().manual_seed(9)
+    payload = torch.randint(0, 256, (8, g.frame_bytes), generator=gen,
+                            dtype=torch.uint8)
+    frames = sim.apply_cfo(TxChain(g, device="cpu").transmit(payload), g.fs,
+                           g.fc, 20.0)
+    delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
+    buf = sim.awgn_passband(frames, sim.sigma_for_esn0(14.0), delay,
+                            g.nofdm * g.buffer_nsymb * g.interp, gen)
+    freq = torch.full((8,), 20.0)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        rx = RxChain(g, device=dev)
+        at = rx.decode_at(buf, torch.full((8,), delay - 8), freq)
+        ref = rx.refine_decode(buf, torch.full((8,), delay + 60), freq, 256)
+        outs.append([t.cpu() for t in (*at[:2], *ref[:2], ref[5])])
+    card, cpu = outs
+    assert cpu[1].all() and cpu[3].all()
+    for a, b in zip(card, cpu):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_deep_mf_score_kernel_matches_plain(cuda_device):
     seg, bank = _deep_case(15, 3, 4, 96, 280, 5, (2, 1, 150), silence=4)
     seg_t = torch.as_tensor(seg, device=cuda_device)

@@ -69,6 +69,47 @@ def test_mix_fir_decimate_row_starts_match_frame_extraction(cfg):
                                atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("stride", [1, 4])
+def test_mix_fir_decimate_row_freq_matches_jax_mix(stride):
+    """Per-row frequency form (plain version) == the JAX chain's
+    mix(pb, f) at fc + f[b], then fir_same[::stride] ("same" form) or its
+    frame extraction over the mixed IQ (per-row starts), over a CONFIG_9
+    buffer (92480 samples). JAX mixes in float32 phase: at up to 1.9e4 rad
+    that is ~1.1e-3 rad of rounding, so the outputs agree within 3e-3 of
+    the output scale; the port's phase is float64 (ROADMAP §3). A row at
+    0 Hz equals the form without offsets bit for bit."""
+    from mercury_tpu.dsp import ops as jops
+    from mercury_tpu.modem.rx import RxChain as JaxRx
+
+    g = build_geometry(9)
+    jax_rx = JaxRx(g)
+    rng = np.random.default_rng(stride)
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    pb = rng.standard_normal((3, n)).astype(np.float32)
+    freq = np.array([0.0, 20.0, -45.0], np.float32)
+    taps = g.fir_rx_data.astype(np.float32)
+    iq = jax_rx.mix(jnp.asarray(pb), jnp.asarray(freq))
+    args = (torch.as_tensor(pb), torch.as_tensor(_osc(g, n)),
+            torch.as_tensor(taps), stride)
+    f_t = torch.as_tensor(freq)
+    ntaps = len(taps)
+    frame = g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
+    delay = np.array([0, 2000, n - frame], np.int64)
+    cases = [({}, np.asarray(jops.fir_same(iq, jnp.asarray(taps)))[:, ::stride])]
+    if stride == g.interp:
+        cases.append((dict(start=torch.as_tensor(delay),
+                           n_out=frame // g.interp,
+                           offset=ntaps - 1 - (ntaps - 1) // 2),
+                      np.asarray(jax_rx.extract_frame_decimated(
+                          iq, jnp.asarray(delay, jnp.int32), g.nsymb))))
+    for row, want in cases:
+        got = kernels.mix_fir_decimate(*args, **row, freq=f_t, fs=g.fs)
+        assert got.shape == want.shape
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got.numpy(), want, atol=3e-3 * scale)
+        assert torch.equal(got[0], kernels.mix_fir_decimate(*args, **row)[0])
+
+
 def _deep_case(seed, a, lp, s, window, rows, plant, silence=None):
     rng = np.random.default_rng(seed)
     bank = (rng.standard_normal((a, lp, s))

@@ -310,6 +310,18 @@ def test_decode_at_matches_jax(chains):
         else:
             np.testing.assert_array_equal(a.numpy(), w, err_msg=name)
     assert got[1].all() and (got[0].numpy() == payload).all()
-    with pytest.raises(NotImplementedError, match=r"§1, item 13\)"):
-        rx.decode_at(torch.as_tensor(buf), torch.as_tensor(d),
-                     torch.full((2,), 5.0))
+    # at a nonzero offset: the buffer shifted by ~+5 Hz (apply_cfo rounds
+    # to an FFT bin of the row), each row decoded at the offset applied;
+    # JAX mixes in float32 phase (~5e-3 rad at 8.7e4 rad), the port in
+    # float64: decisions equal, iters within one sweep
+    n = buf.shape[1]
+    f_app = round(5.0 * n / g.fs) * g.fs / n
+    shifted = sim.apply_cfo(torch.as_tensor(buf), g.fs, g.fc, 5.0)
+    f = np.full(2, f_app, np.float32)
+    got = rx.decode_at(shifted, torch.as_tensor(d), torch.as_tensor(f))
+    want = jax_rx.decode_at(jnp.asarray(shifted.numpy()), jnp.asarray(d),
+                            jnp.asarray(f))
+    assert got[1].all() and (got[0].numpy() == payload).all()
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert np.abs(got[2].numpy() - np.asarray(want[2])).max() <= 1

@@ -234,12 +234,12 @@ def test_mix_and_grid_stats_match_jax(chains):
                                    rtol=1e-4)
 
 
-# the cases that named items 9 and 10 now construct: their options are
-# held against the JAX chain's by test_torch_dd.py::test_option_policy_*
+# the cases that named items 9, 10 and 13 now construct: their options are
+# held against the JAX chain's by test_torch_dd.py::test_option_policy_* and
+# test_narrow_receive_matches_jax
 @pytest.mark.parametrize("cfg,kwargs,item", [
     (0, {"deep_profile": "full"}, "item 8a"),   # round-3 deep scan
     (3, {"deep_profile": "c2f"}, "item 8a"),
-    (9, {"cfo_range": "narrow"}, "item 13"),
 ])
 def test_out_of_slice_options_raise(cfg, kwargs, item):
     with pytest.raises(NotImplementedError,
@@ -266,14 +266,6 @@ def test_ctrl_outside_robust_raises():
         JaxRx(build_geometry(9), ctrl=True)
     with pytest.raises(ValueError, match="ROBUST_0/ROBUST_1"):
         RxChain(port_geometry(9), device="cpu", ctrl=True)
-
-
-def test_decode_at_on_ofdm_raises(chains):
-    """The OFDM branch of decode_at is ROADMAP item 13."""
-    g, _jax_rx, rx = chains(9)
-    with pytest.raises(NotImplementedError, match=r"§1, item 13\)"):
-        rx.decode_at(torch.zeros((1, 1000)), torch.zeros(1, dtype=torch.int32),
-                     torch.zeros(1))
 
 
 @pytest.mark.parametrize("cfg,esn0", [(9, 12.0), (100, -9.0)])
@@ -326,3 +318,157 @@ def test_matmul_precision_survives_two_threads():
         assert torch.get_float32_matmul_precision() == "high"
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def _cfo_buffer(g, esn0: float, seed: int, offsets):
+    """One frame a row at the bench.py delay, row b shifted by offsets[b]
+    Hz (sim.apply_cfo), in white noise at Es/N0 esn0 -> (buffer, payload,
+    delay, the offsets as applied: rounded to a bin of the frame's FFT)."""
+    rng = np.random.default_rng(seed)
+    b = len(offsets)
+    payload = rng.integers(0, 256, (b, g.frame_bytes)).astype(np.uint8)
+    frames = TxChain(port_geometry(g.spec.config), device="cpu").transmit(
+        torch.as_tensor(payload))
+    frames = torch.cat([sim.apply_cfo(frames[i: i + 1], g.fs, g.fc, f)
+                        for i, f in enumerate(offsets)]).numpy()
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
+    buf = rng.standard_normal((b, n)) * sim.sigma_for_esn0(esn0)
+    buf[:, delay: delay + frames.shape[1]] += frames
+    f_len = frames.shape[1]
+    applied = np.array([round(f * f_len / g.fs) * g.fs / f_len
+                        for f in offsets], np.float32)
+    return buf.astype(np.float32), payload, delay, applied
+
+
+def test_to_baseband_measure_and_extract_match_jax(chains):
+    """to_baseband (both FIRs; at fc, and at per-row offsets, where JAX's
+    float32 phase of up to 1.9e4 rad costs ~1.1e-3 rad: 3e-3 of the output
+    scale), measure_signal_dbm within 0.01 dB and extract_frame on a
+    CONFIG_9 buffer, against the JAX chain."""
+    g, jax_rx, rx = chains(9)
+    buf, _payload, delay = _buffer(g, 12.0, seed=6, b=3)
+    pb, pb_j = torch.as_tensor(buf), jnp.asarray(buf)
+    freq = np.array([0.0, 20.0, -45.0], np.float32)
+    for data_fir in (True, False):
+        np.testing.assert_allclose(
+            rx.to_baseband(pb, 0.0, data_fir).numpy(),
+            np.asarray(jax_rx.to_baseband(pb_j, 0.0, data_fir)),
+            atol=1e-5, rtol=1e-4)
+        want = np.asarray(jax_rx.to_baseband(pb_j, jnp.asarray(freq),
+                                             data_fir))
+        np.testing.assert_allclose(
+            rx.to_baseband(pb, torch.as_tensor(freq), data_fir).numpy(), want,
+            atol=3e-3 * np.abs(want).max())
+    np.testing.assert_allclose(rx.measure_signal_dbm(pb).numpy(),
+                               np.asarray(jax_rx.measure_signal_dbm(pb_j)),
+                               atol=0.01)
+    bb = rx.to_baseband(pb, 0.0)
+    d = np.array([delay - 8, 0, buf.shape[1]], np.int64)
+    np.testing.assert_allclose(
+        rx.extract_frame(bb, torch.as_tensor(d)).numpy(),
+        np.asarray(jax_rx.extract_frame(jnp.asarray(bb.numpy()),
+                                        jnp.asarray(d, jnp.int32))),
+        rtol=0, atol=0)
+
+
+def test_extract_frame_decimated_iq_matches_jax(chains):
+    """extract_frame_decimated over complex IQ (one array for both
+    packages) against the JAX chain's at a frame delay, at 0, and at delays
+    clipped at both ends, float32 FIRs: within 1e-5 + 1e-4 relative."""
+    g, jax_rx, rx = chains(9)
+    buf, _payload, delay = _buffer(g, 12.0, seed=7, b=4)
+    iq = rx.mix(torch.as_tensor(buf))
+    d = np.array([delay - 8, 0, -40, buf.shape[1]], np.int64)
+    want = np.asarray(jax_rx.extract_frame_decimated(
+        jnp.asarray(iq.numpy()), jnp.asarray(d, jnp.int32), g.nsymb))
+    got = rx.extract_frame_decimated(iq, torch.as_tensor(d), g.nsymb)
+    assert got.shape == want.shape == (
+        4, (g.nsymb + g.preamble_nsymb) * g.nofdm)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("cfg,estimator,esn0", [
+    (9, "auto", 12.0), (0, "auto", 4.0), (13, "auto", 17.0),
+    (16, "reference", 31.0)])
+def test_decode_at_ofdm_matches_jax(chains, cfg, estimator, esn0):
+    """OFDM decode_at at the known delay - 8 and each row's offset (0,
+    +-20 Hz, as applied) against the JAX chain: payload and crc_ok equal, iters
+    within one sweep, snr_db within 0.05 dB and mean_h within 1e-3
+    (relative). The JAX chain mixes in float32 phase (~1e-3 rad at these
+    buffer lengths), the port in float64 (ROADMAP §3)."""
+    g, jax_rx, rx = chains(cfg, estimator)
+    buf, payload, delay, f = _cfo_buffer(g, esn0, seed=cfg,
+                                         offsets=[0.0, 20.0, -20.0])
+    d = np.full(3, delay - 8, np.int32)
+    got = rx.decode_at(torch.as_tensor(buf), torch.as_tensor(d),
+                       torch.as_tensor(f))
+    want = jax_rx.decode_at_jit(jnp.asarray(buf), jnp.asarray(d),
+                                jnp.asarray(f))
+    payload_p, ok, iters, snr, mean_h = (t.numpy() for t in got)
+    assert ok.all()
+    np.testing.assert_array_equal(ok, np.asarray(want[1]))
+    np.testing.assert_array_equal(payload_p, np.asarray(want[0]))
+    assert (payload_p == payload).all()
+    assert np.abs(iters - np.asarray(want[2])).max() <= 1
+    np.testing.assert_allclose(snr, np.asarray(want[3]), atol=0.05)
+    np.testing.assert_allclose(mean_h, np.asarray(want[4]), rtol=1e-3)
+
+
+def test_refine_decode_matches_jax(chains):
+    """refine_decode on sibling rows cut as link/node.py:483-496 cuts them
+    (transmit_batch frames back to back, each later frame drifted by 37
+    more samples, +20 Hz on the air, margin 256): refined delays and
+    payloads equal the JAX refine_decode_jit's, every row decodes."""
+    g, jax_rx, rx = chains(9)
+    rng = np.random.default_rng(21)
+    payload = rng.integers(0, 256, (3, g.frame_bytes)).astype(np.uint8)
+    frames = TxChain(port_geometry(9), device="cpu").transmit_batch(
+        torch.as_tensor(payload))
+    f_len = frames.shape[1]
+    lead, drift, margin = 5000, 37, 256
+    air = torch.zeros(lead + 3 * f_len + 3 * drift + 20000)
+    for k in range(3):
+        at = lead + k * (f_len + drift)
+        air[at: at + f_len] = frames[k]
+    air = sim.apply_cfo(air[None], g.fs, g.fc, 20.0)[0].numpy()
+    air = (air + 0.02 * rng.standard_normal(air.shape)).astype(np.float32)
+    buf_len = g.nofdm * g.buffer_nsymb * g.interp
+    rows = np.zeros((3, buf_len), np.float32)
+    for k in range(3):
+        start = lead + k * f_len - margin
+        src = air[start: start + buf_len]
+        rows[k, : len(src)] = src
+    delays = np.full(3, margin, np.int32)
+    freqs = np.full(3, 20.0, np.float32)
+    got = rx.refine_decode(torch.as_tensor(rows), torch.as_tensor(delays),
+                           torch.as_tensor(freqs), margin)
+    want = jax_rx.refine_decode_jit(jnp.asarray(rows), jnp.asarray(delays),
+                                    jnp.asarray(freqs), margin)
+    assert got[1].all() and np.asarray(want[1]).all()
+    np.testing.assert_array_equal(got[5].numpy(), np.asarray(want[5]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert (got[0].numpy() == payload).all()
+    np.testing.assert_array_equal(got[5].numpy(),
+                                  margin + drift * np.arange(3))
+    np.testing.assert_allclose(got[6].numpy(), np.asarray(want[6]),
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("cfg", [9, 0])
+def test_narrow_receive_matches_jax(cfg):
+    """cfo_range="narrow" (2 Schmidl-Cox candidates, no alias, 2 CFO
+    hypotheses, narrower deep grids) at +30 and -30 Hz against the JAX
+    chain's narrow receive: equal as _assert_same says, every row decodes
+    its payload."""
+    g = build_geometry(cfg)
+    rx = RxChain(port_geometry(cfg), device="cpu", cfo_range="narrow")
+    buf, payload, _delay, _f = _cfo_buffer(g, 12.0, seed=30 + cfg,
+                                           offsets=[30.0, -30.0])
+    res = rx.receive(torch.as_tensor(buf))
+    res_j = JaxRx(g, cfo_range="narrow").receive(jnp.asarray(buf))
+    _assert_same(res, res_j)
+    assert res.crc_ok.all()
+    assert (res.payload.numpy() == payload).all()
+    np.testing.assert_allclose(res.freq_offset.numpy(), [30.0, -30.0],
+                               atol=1.0)

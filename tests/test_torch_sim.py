@@ -131,3 +131,41 @@ def test_config0_under_watterson_matches_jax():
     np.testing.assert_array_equal(ok, np.asarray(res_j.crc_ok))
     np.testing.assert_array_equal(res.delay.numpy(), np.asarray(res_j.delay))
     assert ok.sum() >= 3 and (res.payload.numpy()[ok] == payload[ok]).all()
+
+
+def test_awgn_passband_signal_fill_matches_jax():
+    """fill="signal": every pre-delay sample is the sum of noise and a
+    frame sample (with sigma 0: exactly a sample of its own row), the frame
+    region as fill="noise" places it; the filled region's power and the
+    frame values' share match the JAX function's (jax.random draws other
+    indices from its key: statistics, not samples)."""
+    import jax
+
+    rng = np.random.default_rng(4)
+    frame = rng.standard_normal((3, 4000)).astype(np.float32)
+    frame[1] *= 3.0
+    delay, n = 30_000, 40_000
+    quiet = sim.awgn_passband(torch.as_tensor(frame), 0.0, delay, n,
+                              torch.Generator().manual_seed(5), fill="signal")
+    want = np.asarray(jsim.awgn_passband(jax.random.key(5), jnp.asarray(frame),
+                                         0.0, delay, n, fill="signal"))
+    got = quiet.numpy()
+    np.testing.assert_array_equal(got[:, delay: delay + 4000], frame)
+    assert (got[:, delay + 4000:] == 0).all()
+    for b in range(3):
+        assert np.isin(got[b, :delay], frame[b]).all()
+        assert np.isin(want[b, :delay], frame[b]).all()
+    # 30000 draws a row: the power estimate is within ~1.5% (2 sigma)
+    p_got = np.mean(got[:, :delay] ** 2, axis=-1)
+    p_want = np.mean(want[:, :delay] ** 2, axis=-1)
+    np.testing.assert_allclose(p_got, np.mean(frame ** 2, axis=-1), rtol=0.03)
+    np.testing.assert_allclose(p_got, p_want, rtol=0.04)
+    # the indices cover the frame: most distinct samples drawn
+    assert len(np.unique(got[0, :delay])) > 0.9 * 4000
+    noisy = sim.awgn_passband(torch.as_tensor(frame), 0.5, delay, n,
+                              torch.Generator().manual_seed(5), fill="signal")
+    resid = (noisy - quiet)[:, :delay].double()
+    assert abs(resid.std().item() / 0.5 - 1.0) < 0.01
+    with pytest.raises(ValueError):
+        sim.awgn_passband(torch.as_tensor(frame), 0.5, delay, n,
+                          torch.Generator().manual_seed(5), fill="tone")

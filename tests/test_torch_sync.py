@@ -72,6 +72,29 @@ def test_matched_filter_refine_bank(case):
     assert (d[:, 0] - start == window).all()
 
 
+def test_matched_filter_refine_full_rate(case):
+    """matched_filter_refine over the unfiltered full-rate IQ (the JAX
+    refine_decode_jit's input) at coarse delays inside, before and past the
+    row (clipped starts): delays equal, scores within 1e-4."""
+    g, rx, _bb_ts, delay = case
+    rng = np.random.default_rng(5)
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    pb = rng.standard_normal((3, n)).astype(np.float32)
+    pb[:, delay: delay + 4 * 1000] *= 0.1
+    iq = rx.mix(torch.as_tensor(pb))
+    tmpl = rx._mf_templates
+    iq[:, delay: delay + tmpl.numel()] += 3.0 * tmpl.reshape(-1)
+    coarse = torch.tensor([delay + 90, 10, n])
+    window = 128
+    d, s = sync.matched_filter_refine(iq, coarse, tmpl, rx.geom, window)
+    d_j, s_j = jsync.matched_filter_refine(
+        jnp.asarray(iq.numpy()), jnp.asarray(coarse.numpy()),
+        jnp.asarray(tmpl.numpy()), g, window)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d_j))
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_j), rtol=1e-4)
+    assert int(d[0]) == delay
+
+
 def test_moose_cfo(case):
     g, rx, _bb_ts, delay = case
     pb = torch.as_tensor(np.random.default_rng(5).standard_normal(

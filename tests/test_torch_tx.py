@@ -84,3 +84,32 @@ def test_ctrl_outside_robust_raises():
         JaxTx(build_geometry(9), ctrl=True)
     with pytest.raises(ValueError, match="ROBUST_0/ROBUST_1"):
         TxChain(port_geometry(9), device="cpu", ctrl=True)
+
+
+def test_transmit_batch_matches_jax_and_decodes():
+    """transmit_batch (TX FIRs over the concatenated stream, one frame copy
+    of padding at each end) equals the JAX chain's to 1e-5, and each frame,
+    windowed alone, decodes (tests/test_stream.py:40's bar, CONFIG_6);
+    rows that are not full width raise ValueError."""
+    from mercury_tpu_torch.modem.rx import RxChain
+
+    g = build_geometry(6)
+    payload = np.stack([np.full(g.frame_bytes, 7 * (i + 1), np.uint8)
+                        for i in range(3)])
+    want = np.asarray(JaxTx(g).transmit_batch(jnp.asarray(payload)))
+    tx = TxChain(port_geometry(6), device="cpu")
+    got = tx.transmit_batch(torch.as_tensor(payload))
+    assert got.shape == want.shape == (3, g.total_frame_size)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    # interior frames see real neighbours: not the single-frame filtering
+    single = tx.transmit(torch.as_tensor(payload))
+    assert not torch.equal(got[1], single[1])
+    rx = RxChain(port_geometry(6), device="cpu")
+    buf_len = g.nofdm * g.buffer_nsymb * g.interp
+    win = torch.zeros((3, buf_len))
+    win[:, : g.total_frame_size] = got
+    res = rx.receive(win)
+    assert res.crc_ok.all()
+    assert (res.payload.numpy() == payload).all()
+    with pytest.raises(ValueError):
+        tx.transmit_batch(torch.zeros((2, 3), dtype=torch.uint8))
