@@ -54,7 +54,10 @@ build/mercury_tpu_torch/), then:
   3. decodes the reference's CONFIG_0, 3 and 9 capture buffers, those of
      CONFIG_10-16 and 100-102 at both pilot densities, and CONFIG_15/16's
      with the zero-forcing estimator (tests/golden), to their reference
-     bytes.
+     bytes;
+  4. holds each kernel shape that the paths of 2 and 3 launched and
+     phase 1 did not hold against its plain version, on the operands of
+     its first call there (ShapeLog, hold_path_shapes).
 Any failure raises (non-zero exit). Without a CUDA device it exits non-zero
 before printing a result. The line before the last lists the kernels
 (launches on the main paths, error, times, bound, library time); the last
@@ -62,6 +65,7 @@ line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import inspect
 import json
 import pathlib
 import re
@@ -78,10 +82,16 @@ from mercury_tpu_torch import native, obs
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.channel.ber import BerHarness
 from mercury_tpu_torch.dsp import kernels
+from mercury_tpu_torch.link import protocol as P
+from mercury_tpu_torch.link.node import ArqConfig, ArqNode
+from mercury_tpu_torch.link.sim import ChannelModel, LinkSimulator
+from mercury_tpu_torch.link.tcp_api import ArqTcpServer
+from mercury_tpu_torch.link.transport import PairTransport
 from mercury_tpu_torch.modem.patterns import PatternSignaler
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.stream import StreamReceiver
 from mercury_tpu_torch.modem.tx import TxChain
+from mercury_tpu_torch.scale import serve
 
 BATCH = 256
 # Es/N0 (dB) of each main path: 12 dB up to QPSK, then tests/test_rx.py:64's
@@ -140,7 +150,7 @@ def bound(nbytes: float, flops: float, kind: str) -> dict:
 
 
 def bound_text(b: dict, kernel_ms: float) -> str:
-    return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+    return (f"bound {b['bound_ms']:.4g} ms by {b['bound_by']} "
             f"({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e9:.3f} GFLOP "
             f"{b['flop_kind']}); the kernel alone at "
             f"{100 * b['bound_ms'] / kernel_ms:.1f}% of it")
@@ -208,6 +218,205 @@ def mf_raw(name: str, seg, bank, window: int, outs):
                       2 * window + 1, 8 * tmpl.shape[2], kernels._stream(seg))
 
 
+def fir_raw(pb, osc, taps, stride, start=None, n_out=None, offset=None,
+            freq=None, fs=None):
+    """A raw launch of mix_fir_decimate on the wrapper's operands (the
+    output allocated once, outside the timing)."""
+    lib = native.load_library()
+    b, n = pb.shape
+    ntaps = taps.shape[0]
+    if start is None:
+        n_out, offset = (n - 1) // stride + 1, (ntaps - 1) // 2
+    dst = torch.empty((b, n_out), dtype=torch.complex64, device=pb.device)
+    return lambda: lib.mfd_launch(
+        pb.data_ptr(), osc.data_ptr(), taps.data_ptr(),
+        None if start is None else start.data_ptr(),
+        None if freq is None else freq.data_ptr(),
+        0.0 if freq is None else float(fs), dst.data_ptr(), b, n, n_out,
+        stride, offset, ntaps, kernels._stream(pb))
+
+
+def pcs_raw(bb_dec, idx0, fidx, bank, prepared=None):
+    """A raw launch of pilot_cand_score on the wrapper's operands (the
+    baseband at its own strides; the kernel clips the candidates)."""
+    lib = native.load_library()
+    b, n_dec = bb_dec.shape
+    m = idx0.shape[1]
+    f_n, nsym, s_d = bank.shape
+    bank_t, e_t = prepared or kernels.pilot_bank(bank)
+    res = torch.empty((b, m), dtype=torch.float32, device=bb_dec.device)
+    operands = (bb_dec, idx0.long().contiguous(), fidx.long().contiguous(),
+                bank_t, e_t, res)
+    return lambda: lib.pcs_launch(
+        *[t.data_ptr() for t in operands], b, n_dec, bb_dec.stride(0),
+        bb_dec.stride(1), m, f_n, nsym, s_d, kernels._stream(bb_dec))
+
+
+def pcs_bound(bb_dec, idx0, fidx, bank) -> dict:
+    """pilot_cand_score's bound. Bytes: each row's samples under some
+    candidate, the bank rows referenced, starts, rows, energies and scores;
+    flops: 8 per complex multiply-add and 4 per sample energy (FP32)."""
+    b, n_dec = bb_dec.shape
+    m = idx0.shape[1]
+    _, nsym, s_d = bank.shape
+    span = nsym * s_d
+    st, fr = kernels._clip_candidates(n_dec, idx0, fidx, bank)
+    cover = torch.zeros((b, n_dec + 1), dtype=torch.int32,
+                        device=bb_dec.device)
+    one = torch.ones_like(st, dtype=torch.int32)
+    cover.scatter_add_(1, st, one)
+    cover.scatter_add_(1, st + span, -one)
+    row_samples = int((cover.cumsum(1)[:, :n_dec] > 0).sum())
+    n_rows_used = int(torch.unique(fr).numel())
+    return {**bound(8 * row_samples + 8 * n_rows_used * span + 16 * b * m
+                    + 4 * nsym + 4 * b * m, 12.0 * b * m * span, "FP32"),
+            "bank_rows": n_rows_used}
+
+
+def shape_key(name: str, a: dict) -> tuple:
+    """What a kernel launch's grid and memory walk depend on, from its
+    wrapper's arguments: the operands' shapes (and the baseband's strides
+    for pilot_cand_score, which reads a strided view) and the integer
+    parameters."""
+    if name == "mix_fir_decimate":
+        b, n = a["pb"].shape
+        ntaps = a["taps"].shape[0]
+        if a["start"] is None:
+            n_out, offset = (n - 1) // a["stride"] + 1, (ntaps - 1) // 2
+        else:
+            n_out, offset = a["n_out"], a["offset"]
+        return (b, n, n_out, a["stride"], offset, ntaps,
+                "starts" if a["start"] is not None else "from 0",
+                "offsets" if a["freq"] is not None else "no offsets")
+    if name == "pilot_cand_score":
+        bb = a["bb_dec"]
+        return (*bb.shape, *bb.stride(), a["idx0"].shape[1],
+                *a["bank"].shape)
+    return (*a["seg"].shape, *a["bank"].shape, a["window"])
+
+
+def _copy(v):
+    """A tensor copied at its own strides (a tuple of them each), else v."""
+    if isinstance(v, tuple):
+        return tuple(_copy(x) for x in v)
+    if not torch.is_tensor(v):
+        return v
+    return torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                               device=v.device).copy_(v)
+
+
+class ShapeLog:
+    """The launch shapes of the four kernels. Each wrapper in `kernels` is
+    replaced by one that notes the shape (shape_key) of every call on the
+    card, then calls the wrapper (whose launch count is its own). While
+    `path` is None (phase 1) a shape is noted as held against the plain
+    version; on a path, every shape's launches are counted, and a shape
+    phase 1 did not hold keeps the first path to launch it and a copy of
+    its first call's operands, which hold_path_shapes holds against the
+    plain version."""
+
+    def __init__(self):
+        self.wrappers = {name: getattr(kernels, name) for name in KERNELS}
+        self.held = set()
+        self.path = None
+        self.unheld = {}
+        self.launches = {}
+        for name, fn in self.wrappers.items():
+            setattr(kernels, name, self._noting(name, fn))
+
+    def _noting(self, name, fn):
+        sig = inspect.signature(fn)
+
+        def noted(*args, **kw):
+            a = sig.bind(*args, **kw)
+            a.apply_defaults()
+            if a.args[0].is_cuda:
+                self.note(name, a.arguments)
+            return fn(*args, **kw)
+        return noted
+
+    def note(self, name: str, a: dict) -> None:
+        key = (name, shape_key(name, a))
+        if self.path is None:
+            self.held.add(key)
+            return
+        self.launches[key] = self.launches.get(key, 0) + 1
+        if key not in self.held and key not in self.unheld:
+            self.unheld[key] = {"path": self.path,
+                                "args": {k: _copy(v) for k, v in a.items()}}
+
+
+def hold_path_shapes(log: ShapeLog) -> dict:
+    """Every shape a path launched that phase 1 did not hold, on the
+    operands of its first call there: the wrapper against the plain
+    version at phase 1's tolerances (mix_fir_decimate within 1e-4 of
+    max(1, the output's scale); the matched filters rtol and atol 1e-3,
+    with the argmax equal wherever the plain version's top two differ by
+    more than 1e-3; pilot_cand_score rtol 1e-4, atol 1e-5), each timed
+    through the wrapper, alone and plain (5 launches each) beside its
+    bound. -> {"name shape": figures}."""
+    out = {}
+    for (name, key), entry in sorted(log.unheld.items(), key=str):
+        a = entry["args"]
+        wrapper, plain = log.wrappers[name], getattr(kernels, f"{name}_ref")
+        pa = {k: v for k, v in a.items() if k != "prepared"}
+        if name == "mix_fir_decimate":
+            got, want = wrapper(**a), plain(**pa)
+            err = (got - want).abs().max().item()
+            limit = 1e-4 * max(1.0, want.abs().max().item())
+            assert err <= limit, f"{name} {key}: max abs err {err}"
+            b, n, n_out, stride, offset, ntaps = key[:6]
+            start = a["start"] if a["start"] is not None else torch.zeros(
+                b, dtype=torch.int64, device=a["pb"].device)
+            bd = fir_bound(b, n, start, n_out, stride, offset, ntaps,
+                           a["freq"] is not None)
+            raw = fir_raw(**a)
+            text = f"within {limit:.3e}"
+        elif name == "pilot_cand_score":
+            got, want = wrapper(**a), plain(**pa)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+            err = (got - want).abs().max().item()
+            bd = pcs_bound(a["bb_dec"], a["idx0"], a["fidx"], a["bank"])
+            raw = pcs_raw(**a)
+            text = "within rtol 1e-4, atol 1e-5"
+        else:
+            seg, bank, window = a["seg"], a["bank"], a["window"]
+            score = kernels.deep_mf_score_ref(seg, bank, window)
+            if name == "deep_mf_score":
+                got, want = wrapper(**a), score
+                outs = [torch.empty_like(got)]
+            else:
+                (got, sarg), (want, ref_arg) = wrapper(**a), plain(**pa)
+                outs = [torch.empty_like(got), torch.empty_like(sarg)]
+                top2 = score.topk(2, dim=1).values
+                clear = top2[:, 0] - top2[:, 1] > 1e-3
+                assert torch.equal(sarg[clear], ref_arg[clear]), (
+                    f"{name} {key}: sarg differs at a clear lag")
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+            top2 = want.topk(2, dim=-1).values
+            clear = top2[..., 0] - top2[..., 1] > 1e-3
+            assert torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear]), (
+                f"{name} {key}: argmax over lags differs")
+            err = (got - want).abs().max().item()
+            bd = mf_bound(seg.shape[0], seg.shape[1], bank.shape,
+                          2 * window + 1, 4 if name == "deep_mf_score" else 12)
+            raw = mf_raw(name, seg, bank, window, outs)
+            text = (f"within rtol/atol 1e-3, argmax equal on "
+                    f"{int(clear.sum())}/{clear.numel()} clear rows")
+        st = {"launches": log.launches[name, key], "path": entry["path"],
+              "max_abs_err": err, "ms": cuda_ms(lambda: wrapper(**a), 5),
+              "kernel_ms": raw_ms(raw, 5),
+              "plain_ms": cuda_ms(lambda: plain(**pa), 5), **bd}
+        out[f"{name} {key}"] = st
+        print(f"path shape {name} {list(key)} (first launched by "
+              f"{entry['path']}; {st['launches']} launches on the "
+              f"paths): max abs err {err:.3e} {text}; wrapper "
+              f"{st['ms']:.4f} ms, kernel alone {st['kernel_ms']:.4f} ms, "
+              f"plain {st['plain_ms']:.4f} ms; "
+              f"{bound_text(bd, st['kernel_ms'])}")
+    return out
+
+
 def golden(name: str) -> np.ndarray:
     meta = {}
     for f in sorted(GOLDEN.glob("meta*.json")):
@@ -267,7 +476,7 @@ def fir_library(pb, _osc, taps, stride, g):
 
 
 def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
-                           pattern: PatternSignaler) -> dict:
+                           pattern: PatternSignaler, small: dict) -> dict:
     """For each main path's chain (label -> chain; CONFIG_3 first, whose
     numbers go into the kernels line): the TS form over the whole buffer,
     stride 4, and the per-row-start data-FIR form of that mode's frame
@@ -276,38 +485,36 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
     pattern detector's "same" form (stride 4, the data taps) over an
     ACK/BREAK buffer of `pattern`'s geometry. Each timed through the
     wrapper and as the kernel alone, beside its bound; the "same" forms also
-    beside the conv1d yardstick (which must agree within 1e-4)."""
-    lib = native.load_library()
+    beside the conv1d yardstick (which must agree within 1e-4). Then the
+    link's sizes for each chain in `small` (label -> chain): the TS and
+    data FIRs at batch 1 (a node's receive) and the data FIR with per-row
+    offsets at batch 5 (refine_decode of a batch_size-5 block's siblings).
+    The TS form without per-row starts puts two rows in a block: batch 1
+    holds its odd tail."""
     out = {"max_abs_err": 0.0, "paths": {}}
 
-    def offsets():
-        """Per-row frequency offsets, uniform in +-45 Hz (float32 [BATCH])."""
-        return (torch.rand(BATCH, generator=gen, device=dev) - 0.5) * 90.0
+    def offsets(b):
+        """Per-row frequency offsets, uniform in +-45 Hz (float32 [b])."""
+        return (torch.rand(b, generator=gen, device=dev) - 0.5) * 90.0
 
     def same_form(label, pb, osc, taps, g, stride=None, freq=False):
-        """The strided "same" form (every row from 0) of pb [BATCH, n],
+        """The strided "same" form (every row from 0) of pb [b, n],
         stride g.interp unless given; freq: with per-row offsets (held to
         1e-4 of the output scale; no library call takes them)."""
-        n = pb.shape[1]
+        b, n = pb.shape
         ntaps = taps.shape[0]
         stride = stride or g.interp
         args = (pb, osc, taps, stride)
-        kw = dict(freq=offsets(), fs=g.fs) if freq else {}
+        kw = dict(freq=offsets(b), fs=g.fs) if freq else {}
         want = kernels.mix_fir_decimate_ref(*args, **kw)
         err = (kernels.mix_fir_decimate(*args, **kw) - want).abs().max().item()
         limit = 1e-4 * (want.abs().max().item() if freq else 1.0)
         assert err <= limit, f"{label}: max abs err {err} (limit {limit})"
         del want
         n_out = (n - 1) // stride + 1
-        dst = torch.empty((BATCH, n_out), dtype=torch.complex64,
-                          device=pb.device)
         st = {"max_abs_err": err, "n_ts": n_out,
               "ms": cuda_ms(lambda: kernels.mix_fir_decimate(*args, **kw)),
-              "kernel_ms": raw_ms(lambda: lib.mfd_launch(
-                  pb.data_ptr(), osc.data_ptr(), taps.data_ptr(), None,
-                  kw["freq"].data_ptr() if freq else None, g.fs,
-                  dst.data_ptr(), BATCH, n, n_out, stride, (ntaps - 1) // 2,
-                  ntaps, kernels._stream(pb))),
+              "kernel_ms": raw_ms(fir_raw(*args, **kw)),
               "plain_ms": cuda_ms(lambda: kernels.mix_fir_decimate_ref(
                   *args, **kw)),
               "library_ms": None}
@@ -319,15 +526,15 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
             assert lib_err <= 1e-4, (
                 f"{label}: conv1d yardstick differs by {lib_err}")
             st["library_ms"] = cuda_ms(library)
-            lib_text = (f"library (two calls: cuDNN conv1d [{BATCH},1,{n}] x "
+            lib_text = (f"library (two calls: cuDNN conv1d [{b},1,{n}] x "
                         f"[2,1,{ntaps}] stride {stride}, then torch.complex * "
                         f"rotation) {st['library_ms']:.4f} ms, agrees within "
                         f"{lib_err:.3e}")
-        st.update(fir_bound(BATCH, n, torch.zeros(BATCH, dtype=torch.int64,
-                                                   device=pb.device),
+        st.update(fir_bound(b, n, torch.zeros(b, dtype=torch.int64,
+                                               device=pb.device),
                             n_out, stride, (ntaps - 1) // 2, ntaps, freq))
-        print(f"mix_fir_decimate {label} [{BATCH},{n}] s{stride} -> "
-              f"[{BATCH},{n_out}]: max abs err {err:.3e} (limit "
+        print(f"mix_fir_decimate {label} [{b},{n}] s{stride} -> "
+              f"[{b},{n_out}]: max abs err {err:.3e} (limit "
               f"{limit:.3e}); wrapper {st['ms']:.4f} ms, kernel alone "
               f"{st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.4f} ms; "
               f"{bound_text(st, st['kernel_ms'])}; {lib_text}")
@@ -337,38 +544,31 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
         """The per-row-start data FIR of rx's frame (active_nsymb); freq:
         with per-row offsets (held to 1e-4 of the output scale)."""
         g = rx.geom
-        n = pb.shape[1]
+        b, n = pb.shape
         ntaps = rx._fir_data.shape[0]
         frame = g.nofdm * (rx.active_nsymb + g.preamble_nsymb) * g.interp
-        start = torch.randint(0, n - frame, (BATCH,), generator=gen,
+        start = torch.randint(0, n - frame, (b,), generator=gen,
                               device=pb.device)
         row = dict(start=start, n_out=frame // g.interp,
                    offset=ntaps - 1 - (ntaps - 1) // 2)
         if freq:
-            row.update(freq=offsets(), fs=g.fs)
+            row.update(freq=offsets(b), fs=g.fs)
         data = (pb, osc, rx._fir_data, g.interp)
         want = kernels.mix_fir_decimate_ref(*data, **row)
         err = (kernels.mix_fir_decimate(*data, **row) - want).abs().max().item()
         limit = 1e-4 * (want.abs().max().item() if freq else 1.0)
         assert err <= limit, f"{label} data FIR: max abs err {err}"
         del want
-        dst = torch.empty((BATCH, row["n_out"]), dtype=torch.complex64,
-                          device=pb.device)
-        bd = fir_bound(BATCH, n, start, row["n_out"], g.interp, row["offset"],
+        bd = fir_bound(b, n, start, row["n_out"], g.interp, row["offset"],
                        ntaps, freq)
         st = {"data_err": err, "n_data": row["n_out"],
               "data_ms": cuda_ms(lambda: kernels.mix_fir_decimate(*data,
                                                                   **row)),
-              "data_kernel_ms": raw_ms(lambda: lib.mfd_launch(
-                  pb.data_ptr(), osc.data_ptr(), rx._fir_data.data_ptr(),
-                  start.data_ptr(),
-                  row["freq"].data_ptr() if freq else None, g.fs,
-                  dst.data_ptr(), BATCH, n, row["n_out"], g.interp,
-                  row["offset"], ntaps, kernels._stream(pb))),
+              "data_kernel_ms": raw_ms(fir_raw(*data, **row)),
               "data_plain_ms": cuda_ms(
                   lambda: kernels.mix_fir_decimate_ref(*data, **row)),
               "data_bound_ms": bd["bound_ms"]}
-        print(f"mix_fir_decimate {label} data FIR -> [{BATCH},{row['n_out']}] "
+        print(f"mix_fir_decimate {label} data FIR -> [{b},{row['n_out']}] "
               f"at per-row starts{' and offsets (+-45 Hz)' if freq else ''}: "
               f"max abs err {err:.3e} (limit {limit:.3e}); "
               f"wrapper {st['data_ms']:.4f} ms, kernel alone "
@@ -429,6 +629,19 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
                    pattern._fir_data, g)
     out["max_abs_err"] = max(out["max_abs_err"], st["max_abs_err"])
     out["paths"][label] = st
+    del pb
+    for label, rx in small.items():
+        g = rx.geom
+        n = g.nofdm * g.buffer_nsymb * g.interp
+        pb5 = 0.3 * torch.randn((5, n), generator=gen, device=rx.device)
+        osc = rx._osc_const(n)
+        st = same_form(f"{label} TS, batch 1", pb5[:1], osc, rx._fir_ts, g)
+        st.update(data_form(f"{label} batch 1", pb5[:1], osc, rx))
+        st5 = data_form(f"{label} batch 5", pb5, osc, rx, freq=True)
+        out["paths"][f"{label} batch 1"] = st
+        out["paths"][f"{label} offsets batch 5"] = st5
+        out["max_abs_err"] = max(out["max_abs_err"], st["max_abs_err"],
+                                 st["data_err"], st5["data_err"])
     return out
 
 
@@ -440,7 +653,9 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
     [768,952]x[3,3,136], CONFIG_13 [768,816]x[3,2,136], CONFIG_16
     [768,680]x[3,1,136]), and refine_decode's full-rate shape on rx9
     (CONFIG_9: [256,4864]x[1,4,1088] w=256, 513 lags: not a multiple of
-    the kernel's 256-lag tile), with planted peaks: argmax
+    the kernel's 256-lag tile); and the link's sizes: a batch-1 receive's
+    refine ([3,1088]x[3,4,136]) and refine_decode over a batch_size-5
+    block's siblings ([5,4864]x[1,4,1088]); with planted peaks: argmax
     equal on every planted row, scores within rtol 1e-3 (atol 1e-3)."""
     dev = rx.device
     aliases = (0.0, 93.75, -93.75)
@@ -450,7 +665,9 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
             ("refine", rx, 3 * BATCH, aliases, 272),
             *((f"refine {name}", c, 3 * BATCH, aliases, 272)
               for name, c in refine_only.items()),
-            ("refine_decode CONFIG_9", rx9, BATCH, None, 256)):
+            ("refine_decode CONFIG_9", rx9, BATCH, None, 256),
+            ("refine, batch 1", rx, 3, aliases, 272),
+            ("refine_decode CONFIG_9, batch 5", rx9, 5, None, 256)):
         if freqs is None:               # the full-rate templates as they are
             bank = chain._mf_templates[None]
             lp, s = bank.shape[1:]
@@ -504,28 +721,30 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
     return out
 
 
-def check_deep_mf_max(rx: RxChain, gen: torch.Generator) -> dict:
-    """Coherent scan [256,14824]x[61,1,544] w=7140 with one planted peak
-    per row: smax within rtol/atol 1e-3; sarg equal on every planted lag and
-    wherever the plain top-two margin exceeds 1e-3; argmax over lags equal
-    on every planted row."""
+def check_deep_mf_max(rx: RxChain, gen: torch.Generator,
+                      batch: int = BATCH) -> dict:
+    """Coherent scan [batch,14824]x[61,1,544] w=7140 (batch 256: the
+    receive's; 1: a link node's) with one planted peak per row: smax within
+    rtol/atol 1e-3; sarg equal on every planted lag and wherever the plain
+    top-two margin exceeds 1e-3; argmax over lags equal on every planted
+    row."""
     dev = rx.device
     _, bank, _, _ = rx._coherent_banks(8)
     window = 7140
     seg_len = 2 * window + bank.shape[-1]
-    seg = torch.complex(torch.randn((BATCH, seg_len), generator=gen,
+    seg = torch.complex(torch.randn((batch, seg_len), generator=gen,
                                     device=dev),
-                        torch.randn((BATCH, seg_len), generator=gen,
+                        torch.randn((batch, seg_len), generator=gen,
                                     device=dev)) * 0.05
-    hyp = torch.randint(0, bank.shape[0], (BATCH,), generator=gen, device=dev)
-    lag = torch.randint(0, 2 * window + 1, (BATCH,), generator=gen,
+    hyp = torch.randint(0, bank.shape[0], (batch,), generator=gen, device=dev)
+    lag = torch.randint(0, 2 * window + 1, (batch,), generator=gen,
                         device=dev)
     idx = lag[:, None] + torch.arange(bank.shape[-1], device=dev)[None]
     seg.scatter_add_(1, idx, bank[hyp, 0])
     smax, sarg = kernels.deep_mf_max(seg, bank, window)
     ref_max, ref_arg = kernels.deep_mf_max_ref(seg, bank, window)
     torch.testing.assert_close(smax, ref_max, rtol=1e-3, atol=1e-3)
-    r = torch.arange(BATCH, device=dev)
+    r = torch.arange(batch, device=dev)
     assert torch.equal(sarg[r, lag], hyp) and torch.equal(ref_arg[r, lag], hyp)
     assert torch.equal(smax.argmax(-1), lag) and torch.equal(
         ref_max.argmax(-1), lag), "deep_mf_max: argmax over lags differs"
@@ -542,73 +761,60 @@ def check_deep_mf_max(rx: RxChain, gen: torch.Generator) -> dict:
            "plain_ms": cuda_ms(
                lambda: kernels.deep_mf_max_ref(seg, bank, window), 5),
            "library_ms": None}
-    out.update(mf_bound(BATCH, seg_len, bank.shape, 2 * window + 1, 12))
-    print(f"deep_mf_max [{BATCH},{seg_len}]x{list(bank.shape)} w={window}: "
-          f"max abs err {err:.3e}; sarg equal on {BATCH} planted lags and "
+    out.update(mf_bound(batch, seg_len, bank.shape, 2 * window + 1, 12))
+    print(f"deep_mf_max [{batch},{seg_len}]x{list(bank.shape)} w={window}: "
+          f"max abs err {err:.3e}; sarg equal on {batch} planted lags and "
           f"{int(clear.sum())}/{clear.numel()} lags with a clear margin; "
           f"wrapper {out['ms']:.4f} ms, kernel alone {out['kernel_ms']:.4f} "
           f"ms, plain {out['plain_ms']:.4f} ms; "
-          f"{mf_tflops(BATCH, bank.shape, 2 * window + 1, out['kernel_ms']):.2f}"
+          f"{mf_tflops(batch, bank.shape, 2 * window + 1, out['kernel_ms']):.2f}"
           f" TFLOP/s effective (kernel alone); "
           f"{bound_text(out, out['kernel_ms'])}; library: none; {MF_FORM}")
     return out
 
 
-def check_pilot_cand_score(rx: RxChain, gen: torch.Generator) -> dict:
-    """[256,14824] rows, M=32, bank [61,48,136]: row 1 half-silent, row 2
-    silent, candidates clipped at both ends; rtol 1e-4, atol 1e-5. The
+def check_pilot_cand_score(rx: RxChain, gen: torch.Generator,
+                           batch: int = BATCH) -> dict:
+    """[batch,14824] rows (256: the receive's; 1: a link node's), M=32,
+    bank [61,48,136]: row 1 half-silent, row 2 silent (where batch has
+    them), candidates clipped at both ends; rtol 1e-4, atol 1e-5. The
     prepared bank comes from the chain's cache, as on the path."""
     dev = rx.device
     _, _, bank, prepared = rx._coherent_banks(8)
     n_dec, m = 14824, 32
     f_n, nsym, s_d = bank.shape
     span = nsym * s_d
-    bb = torch.complex(torch.randn((BATCH, n_dec), generator=gen, device=dev),
-                       torch.randn((BATCH, n_dec), generator=gen, device=dev))
-    bb[1, n_dec // 2:] = 0
-    bb[2] = 0
-    idx0 = torch.randint(0, n_dec - span + 1, (BATCH, m), generator=gen,
+    bb = torch.complex(torch.randn((batch, n_dec), generator=gen, device=dev),
+                       torch.randn((batch, n_dec), generator=gen, device=dev))
+    if batch > 2:
+        bb[1, n_dec // 2:] = 0
+        bb[2] = 0
+    idx0 = torch.randint(0, n_dec - span + 1, (batch, m), generator=gen,
                          device=dev)
     idx0[:, 0] = -100
     idx0[:, 1] = n_dec
-    fidx = torch.randint(0, f_n, (BATCH, m), generator=gen, device=dev)
+    fidx = torch.randint(0, f_n, (batch, m), generator=gen, device=dev)
     args = (bb, idx0, fidx, bank)
     got = kernels.pilot_cand_score(*args, prepared)
     want = kernels.pilot_cand_score_ref(*args)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
-    assert (got[2] == 0).all() and (got[0] > 0).all()
+    assert (got[0] > 0).all() and (batch < 3 or (got[2] == 0).all())
     err = (got - want).abs().max().item()
-    # the kernel alone (it clips the candidates itself)
-    lib = native.load_library()
-    res = torch.empty_like(got)
-    ptrs = [t.data_ptr() for t in (bb, idx0, fidx, *prepared, res)]
     out = {"max_abs_err": err,
            "ms": cuda_ms(lambda: kernels.pilot_cand_score(*args, prepared)),
-           "kernel_ms": raw_ms(lambda: lib.pcs_launch(
-               *ptrs, BATCH, n_dec, n_dec, 1, m, f_n, nsym, s_d,
-               kernels._stream(bb))),
+           "kernel_ms": raw_ms(pcs_raw(*args, prepared)),
            "plain_ms": cuda_ms(lambda: kernels.pilot_cand_score_ref(*args)),
            "library_ms": None}
-    # compulsory bytes: each row's samples under some candidate, the bank
-    # rows referenced, starts, rows, energies and scores; flops: 8 per
-    # complex multiply-add and 4 per sample energy
-    st, fr = kernels._clip_candidates(n_dec, idx0, fidx, bank)
-    cover = torch.zeros((BATCH, n_dec + 1), dtype=torch.int32, device=dev)
-    one = torch.ones_like(st, dtype=torch.int32)
-    cover.scatter_add_(1, st, one)
-    cover.scatter_add_(1, st + span, -one)
-    row_samples = int((cover.cumsum(1)[:, :n_dec] > 0).sum())
-    n_rows_used = int(torch.unique(fr).numel())
-    out.update(bound(8 * row_samples + 8 * n_rows_used * span
-                     + 16 * BATCH * m + 4 * nsym + 4 * BATCH * m,
-                     12.0 * BATCH * m * span, "FP32"))
-    print(f"pilot_cand_score [{BATCH},{n_dec}] M={m} x{list(bank.shape)}: "
-          f"max abs err {err:.3e} (bursty, silent and clipped cases); "
+    out.update(pcs_bound(*args))
+    print(f"pilot_cand_score [{batch},{n_dec}] M={m} x{list(bank.shape)}: "
+          f"max abs err {err:.3e} "
+          f"({'bursty, silent and clipped' if batch > 2 else 'clipped'} "
+          f"cases); "
           f"wrapper {out['ms']:.4f} ms, kernel alone {out['kernel_ms']:.4f} "
           f"ms, plain {out['plain_ms']:.4f} ms; "
-          f"{bound_text(out, out['kernel_ms'])} ({n_rows_used} bank rows "
+          f"{bound_text(out, out['kernel_ms'])} ({out['bank_rows']} bank rows "
           f"referenced; templates read per (row, candidate): "
-          f"{8 * BATCH * m * span / 1e6:.1f} MB); library: none")
+          f"{8 * batch * m * span / 1e6:.1f} MB); library: none")
     return out
 
 
@@ -1218,6 +1424,317 @@ def drive_stream_and_obs(dev: torch.device) -> dict:
             "stream_receive_ms": steady[len(steady) // 2]}
 
 
+def drive_link(dev: torch.device, label: str, cfg: ArqConfig, snr_db: float,
+               n_bytes: int, kernels_used: tuple) -> dict:
+    """A two-node LinkSimulator session (link/sim.py's channel, host numpy;
+    both nodes' chains on the card) from cfg.init_configuration: n_bytes of
+    random payload must arrive intact. Each node's receives (RxChain.receive
+    calls, refine_decode calls) are counted while it handles a delivered
+    block; every kernel of kernels_used must launch."""
+    nodes = {"commander": ArqNode("VE3XYZ", P.COMMANDER, cfg, device=dev),
+             "responder": ArqNode("N0CALL", P.RESPONDER, cfg, device=dev)}
+    per = {k: {"blocks": 0, "receives": 0, "refines": 0, "sweeps": 0,
+               "ms": []} for k in nodes}
+    current = [None]
+    for key, nd in nodes.items():
+        def on_samples(samples, now, inner=nd.on_samples, key=key):
+            current[0] = key
+            t0 = time.perf_counter()
+            inner(samples, now)
+            per[key]["ms"].append((time.perf_counter() - t0) * 1e3)
+            per[key]["blocks"] += 1
+            current[0] = None
+        nd.on_samples = on_samples
+    receive, refine = RxChain.receive, RxChain.refine_decode
+
+    def counted_receive(self, pb):
+        res = receive(self, pb)
+        if current[0] is not None:
+            per[current[0]]["receives"] += 1
+            per[current[0]]["sweeps"] += int(res.iters.sum())
+        return res
+
+    def counted_refine(self, *args):
+        out = refine(self, *args)
+        if current[0] is not None:
+            per[current[0]]["refines"] += 1
+            per[current[0]]["sweeps"] += int(out[2].sum())
+        return out
+
+    RxChain.receive, RxChain.refine_decode = counted_receive, counted_refine
+    try:
+        cmd, rsp = nodes["commander"], nodes["responder"]
+        link = LinkSimulator(cmd, rsp, ChannelModel(snr_db=snr_db, seed=0))
+        payload = bytes(np.random.default_rng(0).integers(0, 256, n_bytes)
+                        .astype(np.uint8))
+        cmd.send_data(payload)
+        cmd.connect("N0CALL")
+        t0 = time.perf_counter()
+        sim_s, n = path_launches(lambda: link.run(
+            max_sim_s=3600, until=lambda: len(rsp.fifo_rx) >= n_bytes))
+        wall = time.perf_counter() - t0
+    finally:
+        RxChain.receive, RxChain.refine_decode = receive, refine
+    got = rsp.received()
+    assert got == payload, f"{label}: {len(got)}/{n_bytes} bytes, or wrong"
+    assert all(n[k] > 0 for k in kernels_used), f"{label}: launches {n}"
+    text = "; ".join(
+        f"{k}: {v['blocks']} blocks, {v['receives']} receives + "
+        f"{v['refines']} refine_decode calls, {v['sweeps']} LDPC sweeps, "
+        f"block handling median {sorted(v['ms'])[len(v['ms']) // 2]:.2f} ms"
+        f" max {max(v['ms']):.2f} ms" for k, v in per.items())
+    print(f"link {label}: {n_bytes}/{n_bytes} bytes intact, simulated "
+          f"{sim_s:.3f} s, wall {wall:.2f} s, final config commander "
+          f"{cmd.current_configuration} responder "
+          f"{rsp.current_configuration}, gearshift ups "
+          f"{cmd.stats.gearshift_ups} downs {cmd.stats.gearshift_downs}, "
+          f"blocks sent {cmd.stats.blocks_sent}; {text}; launches {n}")
+    return {"launches": n, "wall_s": wall, "sim_s": sim_s}
+
+
+def _ctl_lines(sock, timeout: float) -> list:
+    sock.settimeout(timeout)
+    buf = b""
+    try:
+        while b"\r" not in buf:
+            chunk = sock.recv(4096)
+            if not chunk:
+                break
+            buf += chunk
+    except OSError:
+        pass
+    return [ln.decode() for ln in buf.split(b"\r") if ln]
+
+
+def drive_tcp(dev: torch.device, n_bytes: int = 2048) -> dict:
+    """Two ArqTcpServers in this process (each node driven by its own
+    thread, the two sharing the cached chains on the card) joined by the
+    in-process pair transport, driven through localhost sockets as a VARA
+    client drives them: MYCALL, LISTEN ON, CONNECT, n_bytes through the
+    data ports, DISCONNECT. Every byte must arrive; the servers' threads
+    are stopped and joined."""
+    import socket
+
+    pair = PairTransport()
+    cfg = ArqConfig(init_configuration=0, gear_shift_on=True, batch_size=5)
+    srv = [ArqTcpServer(base_port=port, config=cfg, transport=end,
+                        device=dev)
+           for port, end in ((17802, pair.a), (17812, pair.b))]
+    socks = []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        for s in srv:
+            s.start()
+        time.sleep(0.5)
+        ctl_a, dat_a, ctl_b, dat_b = socks = [
+            socket.create_connection(("127.0.0.1", port))
+            for port in (17802, 17803, 17812, 17813)]
+        ctl_b.sendall(b"MYCALL N0CALL\r")
+        assert "OK" in _ctl_lines(ctl_b, 5.0)
+        ctl_b.sendall(b"LISTEN ON\r")
+        assert "OK" in _ctl_lines(ctl_b, 5.0)
+        ctl_a.sendall(b"CONNECT VE3XYZ N0CALL\r")
+        seen = {"a": [], "b": []}
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline and not all(
+                any(ln.startswith("CONNECTED") for ln in v)
+                for v in seen.values()):
+            seen["a"] += _ctl_lines(ctl_a, 0.5)
+            seen["b"] += _ctl_lines(ctl_b, 0.5)
+        assert all(any(ln.startswith("CONNECTED") for ln in v)
+                   for v in seen.values()), f"tcp: no CONNECTED: {seen}"
+        t_conn = time.perf_counter() - t0
+        payload = bytes(np.random.default_rng(1).integers(0, 256, n_bytes)
+                        .astype(np.uint8))
+        t1 = time.perf_counter()
+        dat_a.sendall(payload)
+        got = b""
+        dat_b.settimeout(0.5)
+        while time.perf_counter() - t1 < 90 and len(got) < n_bytes:
+            try:
+                got += dat_b.recv(8192)
+            except OSError:
+                pass
+        t_data = time.perf_counter() - t1
+        assert got == payload, f"tcp: {len(got)}/{n_bytes} bytes, or wrong"
+        ctl_a.sendall(b"DISCONNECT\r")
+        lines = []
+        deadline = time.perf_counter() + 30
+        while (time.perf_counter() < deadline
+               and "DISCONNECTED" not in lines):
+            lines += _ctl_lines(ctl_a, 0.5)
+        assert "DISCONNECTED" in lines, f"tcp: {lines}"
+        final_cfg = srv[0].node.current_configuration
+    finally:
+        for sock in socks:
+            sock.close()
+        for s in srv:
+            s.stop()
+        for s in srv:
+            for t in s._threads:
+                t.join(5.0)
+    torch.cuda.synchronize()
+    n = dict(kernels.LAUNCHES)
+    assert not any(t.is_alive() for s in srv for t in s._threads)
+    assert n["mix_fir_decimate"] > 0 and n["deep_mf_max"] > 0, n
+    print(f"tcp: two ArqTcpServers on localhost: CONNECTED in {t_conn:.2f} "
+          f"s, {n_bytes}/{n_bytes} bytes through the data ports in "
+          f"{t_data:.2f} s (final config {final_cfg}), DISCONNECTED, every "
+          f"server thread joined; launches {n}")
+    return {"launches": n}
+
+
+def pool_capture(g, dev: torch.device, n_ch: int, n_syms: int,
+                 esn0: float, seed: int):
+    """n_ch channels of n_syms symbols of capture at Es/N0 esn0: channel
+    c's frame (a random payload) at a lead of (1 + c % 4) symbols plus
+    (97 c mod symbol) samples, so that every frame lies whole in the first
+    34 symbols, white noise everywhere -> (payloads [C, frame_bytes],
+    streams [C, n_syms * symbol]) as host numpy: the pools' input."""
+    sym = g.nofdm * g.interp
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    payload = torch.randint(0, 256, (n_ch, g.frame_bytes), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    frames = TxChain(g, device=dev).transmit(payload)
+    streams = sim.sigma_for_esn0(esn0) * torch.randn(
+        (n_ch, n_syms * sym), generator=gen, device=dev)
+    for c in range(n_ch):
+        lead = (1 + c % 4) * sym + (97 * c) % sym
+        streams[c, lead: lead + frames.shape[1]] += frames[c]
+    return payload.cpu().numpy(), streams.cpu().numpy()
+
+
+def drive_pools(dev: torch.device, n_ch: int = BATCH, k_syms: int = 17,
+                esn0: float = 12.0) -> dict:
+    """FusedDevicePool, DeviceStreamPool and StreamPool over n_ch channels
+    of CONFIG_9 capture (pool_capture), fed in blocks of k_syms symbols
+    (85 = the window: 5 rounds until the windows first fill and every
+    countdown is due). Every channel must decode its own payload. Each
+    round or step ends in its host read; printed per pool: ms per round,
+    LDPC sweeps per row (fused: from the packed iters), rounds, frames
+    decoded, H2D and D2H bytes per round, and Msamples/s of ingest (the
+    samples fed over the rounds' wall time). The idle share of a clean
+    fused round (3): its device busy over its wall, the wall timed without
+    the profiler, the busy from the same round again under the profiler
+    on a second pool fed the same blocks (its packed payload, ok and delay
+    bytes equal to the first's). The unfused pools read their rows with
+    convert.host_rows (float64 columns: 8 bytes a field byte or
+    scalar)."""
+    g = build_geometry(9)
+    sym = g.nofdm * g.interp
+    n_rounds = g.buffer_nsymb // k_syms
+    rx = RxChain(g, device=dev)
+    payloads, streams = pool_capture(g, dev, n_ch, n_rounds * k_syms, esn0,
+                                     909)
+    blk = k_syms * sym
+    blocks = [np.ascontiguousarray(streams[:, r * blk: (r + 1) * blk])
+              for r in range(n_rounds)]
+    want = {c: bytes(payloads[c]) for c in range(n_ch)}
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+
+    def report(name, got, ms, dispatches, h2d, d2h, extra=""):
+        n_good = sum(got.get(c) == w for c, w in want.items())
+        assert n_good == n_ch, f"{name}: {n_good}/{n_ch} channels decoded"
+        fed = n_ch * blk * len(ms)
+        total = sum(ms) / 1e3
+        print(f"{name}, {n_ch} channels of CONFIG_9 at {esn0} dB, "
+              f"{k_syms}-symbol blocks: {n_ch}/{n_ch} channels decoded "
+              f"their payloads in {len(ms)} rounds, {dispatches} batched "
+              f"receives; ms per round {[round(t, 2) for t in ms]}; H2D "
+              f"{h2d / 1e6:.3f} MB and D2H {d2h / 1e3:.3f} kB per "
+              f"round (mean); ingest {fed / total / 1e6:.3f} Msamples/s"
+              f"{extra}")
+        out[name] = {"ms": ms, "msamples_per_s": fed / total / 1e6}
+
+    def counted(fn):
+        kernels.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            launches[k] += kernels.LAUNCHES[k]
+        return res
+
+    # FusedDevicePool: every row decoded every round, one packed D2H
+    pool = serve.FusedDevicePool(g, n_ch, rx=rx)
+    got, ms, sweeps = {}, [], []
+    d2h = n_ch * (g.frame_bytes + 21)
+
+    def one_round(p, r):
+        nxt = blocks[r + 1] if r + 1 < n_rounds else None
+        packed = p.round(blocks[r], nxt)
+        return p.unpack(packed), packed
+    for r in range(n_rounds):
+        t0 = time.perf_counter()
+        res, packed = counted(lambda: one_round(pool, r))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if r == 3:                      # a clean round, not yet due
+            packed3 = packed.clone()
+        cols = serve._columns(packed.cpu().numpy(), g.frame_bytes)
+        sweeps.append(float(cols[5].mean()))
+        for c, rr in res:
+            got.setdefault(c, bytes(rr.payload[0]))
+    # round 3 again, on a second pool fed the same blocks, under the profiler
+    again = serve.FusedDevicePool(g, n_ch, rx=rx)
+    for r in range(3):
+        one_round(again, r)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, packed = one_round(again, 3)
+        torch.cuda.synchronize()
+    fb5 = g.frame_bytes + 5
+    assert torch.equal(packed[:, :fb5], packed3[:, :fb5]), (
+        "round 3's payload, ok or delay differs on the second pool")
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=3)
+    m = re.search(r"Self CUDA time total: ([\d.]+)(s|ms|us)", table)
+    assert m, f"the profiler saw no device time:\n{table}"
+    busy = float(m.group(1)) * {"s": 1e3, "ms": 1.0, "us": 1e-3}[m.group(2)]
+    del again
+    report("FusedDevicePool", got, ms, pool.batched_dispatches,
+           n_ch * blk * 4, d2h,
+           f"; LDPC sweeps per row, mean per round "
+           f"{[round(x, 3) for x in sweeps]}; round 3: device busy "
+           f"{busy:.3f} ms (the same round under the profiler on a second "
+           f"pool, its payload, ok and delay bytes equal) of its "
+           f"{ms[3]:.2f} ms, idle share {1 - busy / ms[3]:.3f}")
+    del pool
+
+    # DeviceStreamPool: windows on the card, ready rows gathered there
+    pool = serve.DeviceStreamPool(g, n_ch, rx=rx)
+    got, ms = {}, []
+    for block in blocks:
+        t0 = time.perf_counter()
+        res = counted(lambda: (pool.feed_block(block), pool.step())[1])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for c, rr in res:
+            got.setdefault(c, bytes(rr.payload[0]))
+    report("DeviceStreamPool", got, ms, pool.batched_dispatches,
+           n_ch * blk * 4 + 8 * pool.rows_dispatched / n_rounds,
+           pool.rows_dispatched * 8 * (g.frame_bytes + 7) / n_rounds)
+    del pool
+
+    # StreamPool: windows in host memory (runtime WindowPool), ready rows
+    # gathered on the host and sent in one pinned copy
+    pool = serve.StreamPool(g, n_ch, rx=rx)
+    got, ms = {}, []
+    for block in blocks:
+        t0 = time.perf_counter()
+        res = counted(lambda: (pool.feed_block(block), pool.step())[1])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for c, rr in res:
+            got.setdefault(c, bytes(rr.payload[0]))
+    report("StreamPool", got, ms, pool.batched_dispatches,
+           4 * pool.buf_len * pool.rows_dispatched / n_rounds,
+           pool.rows_dispatched * 8 * (g.frame_bytes + 7) / n_rounds)
+    assert all(launches[k] > 0 for k in PATH_KERNELS[9]), launches
+    print(f"pools: launches {launches}")
+    return {"launches": launches, **out}
+
+
 def decode_golden(cfg: int, dev: torch.device, density: int = HIGH_DENSITY,
                   estimator: str = "auto") -> None:
     rx = RxChain(build_geometry(cfg, density, estimator=estimator),
@@ -1250,6 +1767,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (build at first use)")
 
     dev = torch.device("cuda")
+    log = ShapeLog()
     # every main path's chain: CONFIG_0 shares CONFIG_3's buffer and frame
     # sizes, CONFIG_102 CONFIG_101's, the others each have their own; the
     # control frames of CONFIG_100 and 101 their data FIR's
@@ -1264,29 +1782,56 @@ def main() -> int:
                                           "CONFIG_16")}
     gen = torch.Generator(device=dev).manual_seed(1234)
     stats = {"mix_fir_decimate": check_mix_fir_decimate(
-                 chains, gen, PatternSignaler(build_geometry(0), device=dev)),
+                 chains, gen, PatternSignaler(build_geometry(0), device=dev),
+                 {"CONFIG_0": rx0, "CONFIG_9": chains["CONFIG_9"]}),
              "deep_mf_score": check_deep_mf_score(rx3, gen, refine_only,
                                                   chains["CONFIG_9"]),
              "deep_mf_max": check_deep_mf_max(rx0, gen),
              "pilot_cand_score": check_pilot_cand_score(rx0, gen)}
+    # a link node's batch-1 receive at CONFIG_0
+    check_deep_mf_max(rx0, gen, batch=1)
+    check_pilot_cand_score(rx0, gen, batch=1)
     del rx0, rx3, refine_only, chains
     torch.cuda.empty_cache()
 
     # each path from counts of 0, read just after it; the kernels line
     # reports each kernel's launches summed over the paths
-    runs = [drive_main_path(cfg, dev)["launches"]
-            for cfg in (3, 9, 0, 16, 13, 11, 100, 101, 102)]
-    runs += [drive_main_path(cfg, dev, ctrl=True)["launches"]
-             for cfg in (100, 101)]
-    runs.append(drive_rescue(dev)["launches"])
-    runs.append(drive_near_threshold(dev)["launches"])
-    runs.append(drive_second_candidate(dev)["launches"])
-    runs.append(drive_patterns(dev)["launches"])
-    runs.append(drive_fading(dev)["launches"])
-    runs.append(drive_ber(dev)["launches"])
-    runs.append(drive_chain_surface(dev)["launches"])
-    runs.append(drive_stream_and_obs(dev)["launches"])
+    runs = []
+
+    def run(label, fn, *args, **kw):
+        log.path = label
+        runs.append(fn(*args, **kw)["launches"])
+
+    for cfg in (3, 9, 0, 16, 13, 11, 100, 101, 102):
+        run(f"CONFIG_{cfg}", drive_main_path, cfg, dev)
+    for cfg in (100, 101):
+        run(f"CONFIG_{cfg} ctrl", drive_main_path, cfg, dev, ctrl=True)
+    run("rescue", drive_rescue, dev)
+    run("near threshold", drive_near_threshold, dev)
+    run("second candidate", drive_second_candidate, dev)
+    run("patterns", drive_patterns, dev)
+    run("fading", drive_fading, dev)
+    run("BER", drive_ber, dev)
+    run("chain surface", drive_chain_surface, dev)
+    run("stream and obs", drive_stream_and_obs, dev)
+    # the link, the TCP service and the serving pools
+    t_new = time.perf_counter()
+    run("link CONFIG_0", drive_link,
+        dev, "CONFIG_0 up, gearshift on, 20 dB",
+        ArqConfig(init_configuration=0, gear_shift_on=True,
+                  robust_enabled=False, batch_size=3), 20.0, 4096,
+        ("mix_fir_decimate", "deep_mf_score", "deep_mf_max",
+         "pilot_cand_score"))
+    run("link ROBUST", drive_link,
+        dev, "ROBUST from CONFIG_100, -5 dB channel SNR",
+        ArqConfig(init_configuration=100, gear_shift_on=True,
+                  robust_enabled=True, batch_size=5), -5.0, 200,
+        ("mix_fir_decimate",))
+    run("tcp", drive_tcp, dev)
+    run("pools", drive_pools, dev)
+    print(f"link, tcp and pool phases: {time.perf_counter() - t_new:.1f} s")
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
+    log.path = "golden"
     for cfg in (0, 3, 9):
         decode_golden(cfg, dev)
     for cfg in (*range(10, 17), 100, 101, 102):
@@ -1294,6 +1839,15 @@ def main() -> int:
             decode_golden(cfg, dev, density)
     for cfg in (15, 16):                # zero-forcing, as the reference
         decode_golden(cfg, dev, estimator="reference")
+    # every shape the paths launched that phase 1 did not hold
+    t0 = time.perf_counter()
+    held = hold_path_shapes(log)
+    print(f"path shapes: {len(held)} not held in phase 1, each held now on "
+          f"its path's operands, in {time.perf_counter() - t0:.1f} s; "
+          f"launches on the paths of the {len(log.held)} shapes held in "
+          f"phase 1: " + "; ".join(
+              f"{name} {list(key)}: {log.launches.get((name, key), 0)}"
+              for name, key in sorted(log.held, key=str)))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 

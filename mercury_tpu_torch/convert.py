@@ -10,6 +10,7 @@ function, so `RxChain.load_state_dict` accepts the result.
 
 `resolve_device` is the device rule of every entry point: the card unless
 the caller names another device, and no silent fall-back to the CPU.
+`host_rows` brings a batch of per-row results to the host in one copy.
 """
 
 from __future__ import annotations
@@ -51,6 +52,14 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch versions "
             "on the CPU")
     return torch.device("cuda")
+
+
+def host_rows(*cols: torch.Tensor) -> np.ndarray:
+    """Per-row results ([B] or [B, k] each; bool, uint8, int32 or float32,
+    on any device) -> one float64 host array [B, sum of widths] in a single
+    copy (one synchronize). float64 holds each of those types exactly."""
+    return torch.cat([c.reshape(c.shape[0], -1).to(torch.float64)
+                      for c in cols], dim=1).cpu().numpy()
 
 
 def rx_state_from_numpy(d: dict[str, np.ndarray],

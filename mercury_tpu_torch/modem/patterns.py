@@ -12,6 +12,7 @@ strided "same" form) give.
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -21,6 +22,10 @@ from mercury_tpu_torch.core import hostdsp
 from mercury_tpu_torch.core.geometry import ModeGeometry, mfsk_params
 from mercury_tpu_torch.dsp import kernels, ops
 from mercury_tpu_torch.modem import mfsk, sync
+
+# guards the oscillator cache's fill: the link's nodes share a signaler
+# across threads
+_CACHE_LOCK = threading.Lock()
 
 
 class PatternSignaler:
@@ -69,8 +74,11 @@ class PatternSignaler:
         """The mixer's oscillator table for n samples, built once."""
         osc = self._osc_cache.get(n)
         if osc is None:
-            osc = self._osc_cache[n] = ops.mixer_table(
-                n, self.geom.fc, self.geom.fs, self.device)
+            with _CACHE_LOCK:
+                osc = self._osc_cache.get(n)
+                if osc is None:
+                    osc = self._osc_cache[n] = ops.mixer_table(
+                        n, self.geom.fc, self.geom.fs, self.device)
         return osc
 
     @torch.no_grad()

@@ -261,6 +261,10 @@ def _cis(theta: torch.Tensor) -> torch.Tensor:
     return torch.complex(torch.cos(theta), torch.sin(theta))
 
 
+# guards the fill of every chain's per-length caches: the link's nodes
+# share chains across threads (ArqTcpServer drives each node from its own)
+_CACHE_LOCK = threading.Lock()
+
 # receives inside _full_fp32_matmul, and the setting they found
 _PRECISION_LOCK = threading.Lock()
 _precision_users = 0
@@ -452,8 +456,11 @@ class RxChain(nn.Module):
         key = (n, self.device)
         arr = self._osc_cache.get(key)
         if arr is None:
-            arr = ops.mixer_table(n, self.geom.fc, self.geom.fs, self.device)
-            self._osc_cache[key] = arr
+            with _CACHE_LOCK:
+                arr = self._osc_cache.get(key)
+                if arr is None:
+                    arr = self._osc_cache[key] = ops.mixer_table(
+                        n, self.geom.fc, self.geom.fs, self.device)
         return arr
 
     def mix(self, pb: torch.Tensor, freq_offset=0.0) -> torch.Tensor:
@@ -906,7 +913,12 @@ class RxChain(nn.Module):
         _osc_const keeps the oscillator."""
         key = (mf_d, self.device)
         banks = self._bank_cache.get(key)
-        if banks is None:
+        if banks is not None:
+            return banks
+        with _CACHE_LOCK:
+            banks = self._bank_cache.get(key)
+            if banks is not None:
+                return banks
             tmpl_d = self._mf_templates[:, ::mf_d]
             lp, s_d = tmpl_d.shape
             span = 120.0 if self.cfo_range == "wide" else 45.0

@@ -11,7 +11,9 @@ equal argmax hypotheses where the top two differ by more than 1e-3, pilot
 scores rtol 1e-4 / atol 1e-5 (float32 sums in another order). The
 matched-filter kernels multiply in TF32 on the tensor cores; the plain
 versions are float32 FFTs. A CONFIG_16 receive on the card equals the
-CPU's in crc_ok, delay and decoded payloads, iters within one sweep."""
+CPU's in crc_ok, delay and decoded payloads, iters within one sweep. The
+device pools (4 channels of CONFIG_16) and a two-node link session decode
+every frame with their windows and chains on the card."""
 
 import numpy as np
 import pytest
@@ -487,3 +489,73 @@ def test_config16_receive_on_card_matches_cpu(cuda_device, esn0):
     assert torch.equal(res.delay.cpu(), ref.delay)
     assert torch.equal(res.payload.cpu()[ok], payload[ok])
     assert (res.iters.cpu() - ref.iters).abs().max() <= 1
+
+
+def _pool_streams(g, sym, buf_len, lead0, blk_syms):
+    """4 channels of CONFIG_16 capture, each a frame at a lead of
+    (lead0 + c) symbols in white noise, cut into blk_syms-symbol blocks."""
+    rng = np.random.default_rng(3)
+    payloads = rng.integers(0, 256, (4, g.frame_bytes)).astype(np.uint8)
+    frames = TxChain(g, device="cpu").transmit(
+        torch.from_numpy(payloads)).numpy()
+    total = buf_len + 8 * sym
+    streams = (2e-3 * rng.standard_normal((4, total))).astype(np.float32)
+    for c in range(4):
+        lead = (lead0 + c) * sym
+        streams[c, lead: lead + frames.shape[1]] += frames[c]
+    blk = blk_syms * sym
+    return payloads, [streams[:, p: p + blk]
+                      for p in range(0, total - blk + 1, blk)]
+
+
+@pytest.mark.cuda
+def test_device_pools_on_card_decode_every_channel(cuda_device):
+    """DeviceStreamPool and FusedDevicePool of 4 channels with the windows
+    on the card: every channel's frame decodes to its payload."""
+    from mercury_tpu_torch.scale import serve
+
+    g = build_geometry(16)
+    rx = RxChain(g, device=cuda_device)
+    pool = serve.DeviceStreamPool(g, 4, rx=rx)
+    assert pool.windows.device.type == "cuda"
+    payloads, blocks = _pool_streams(g, pool.sym_len, pool.buf_len, 2, 3)
+    got = {}
+    for block in blocks:
+        pool.feed_block(block)
+        for c, res in pool.step():
+            got.setdefault(c, bytes(res.payload[0]))
+    assert got == {c: bytes(payloads[c]) for c in range(4)}
+
+    fused = serve.FusedDevicePool(g, 4, rx=rx)
+    payloads, blocks = _pool_streams(g, fused.sym_len, fused.buf_len, 5, 6)
+    got = {}
+    for r, block in enumerate(blocks):
+        nxt = blocks[r + 1] if r + 1 < len(blocks) else None
+        packed = fused.round(block, nxt)
+        assert packed.device.type == "cuda"
+        for c, res in fused.unpack(packed):
+            got.setdefault(c, bytes(res.payload[0]))
+    assert got == {c: bytes(payloads[c]) for c in range(4)}
+
+
+@pytest.mark.cuda
+def test_link_session_on_card(cuda_device):
+    """A two-node CONFIG_0 session with the gearshift on at 20 dB, both
+    nodes' chains on the card: every byte arrives."""
+    from mercury_tpu_torch.link import protocol as P
+    from mercury_tpu_torch.link.node import ArqConfig, ArqNode
+    from mercury_tpu_torch.link.sim import ChannelModel, LinkSimulator
+
+    cfg = ArqConfig(init_configuration=0, gear_shift_on=True,
+                    robust_enabled=False, batch_size=3)
+    cmd = ArqNode("VE3XYZ", P.COMMANDER, cfg, device=cuda_device)
+    rsp = ArqNode("N0CALL", P.RESPONDER, cfg, device=cuda_device)
+    assert cmd._rx.device.type == "cuda"
+    link = LinkSimulator(cmd, rsp, ChannelModel(snr_db=20.0, seed=0))
+    payload = bytes(np.random.default_rng(0).integers(0, 256, 600)
+                    .astype(np.uint8))
+    cmd.send_data(payload)
+    cmd.connect("N0CALL")
+    link.run(max_sim_s=1800, until=lambda: len(rsp.fifo_rx) >= len(payload))
+    assert rsp.received() == payload
+    assert cmd.current_configuration == rsp.current_configuration
