@@ -50,7 +50,22 @@ build/mercury_tpu_torch/), then:
      decode_at and refine_decode over 256 CONFIG_9 rows at +20 Hz;
      cfo_range="narrow" on CONFIG_9 and 0 at +-30 Hz; measure_signal_dbm
      on noise of known power; StreamReceiver on tests/test_stream.py's
-     three-frame stream; rx_diagnostics's bars;
+     three-frame stream; rx_diagnostics's bars; two link sessions, two
+     ArqTcpServers over localhost and the three serving pools at 256
+     channels of CONFIG_9. Then the sharded receive on virtual meshes of
+     the one card (scale.shard; every shard a chain and a stream of its
+     own, the shards driven in turn): channel-parallel CONFIG_9 at 12 dB on 1, 2 and 4 shards
+     (the unsharded receive's bytes), CONFIG_0 as 4 shards x 64 rows, and
+     spmd_overhead_curve at a total batch of 256; time_sharded_receive
+     over 4 shards of CONFIG_9 (256 streams) and CONFIG_0 (64), with frames
+     straddling seams and frames 8 and 4 samples before a seam, each frame
+     claimed exactly once and the claims those of plain receives of each
+     shard's window; time_sharded_receive_stream on CONFIG_16, K = 3
+     blocks, 256 streams, its halo copies profiled (their overlap with the
+     decodes' kernels, a same-card copy rate into
+     analysis.predicted_efficiency); a 2 x 2 (dcn, t) mesh; time_sharded_fir
+     against the unsharded FIR; deep_profile "c2f" and "full" at CONFIG_3;
+     the legacy GI metrics and coherent_preamble_rescore against the CPU;
   3. decodes the reference's CONFIG_0, 3 and 9 capture buffers, those of
      CONFIG_10-16 and 100-102 at both pilot densities, and CONFIG_15/16's
      with the zero-forcing estimator (tests/golden), to their reference
@@ -71,6 +86,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -81,17 +97,18 @@ from mercury_tpu_torch.core.modes import HIGH_DENSITY, LOW_DENSITY
 from mercury_tpu_torch import native, obs
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.channel.ber import BerHarness
-from mercury_tpu_torch.dsp import kernels
+from mercury_tpu_torch.dsp import kernels, ops
 from mercury_tpu_torch.link import protocol as P
 from mercury_tpu_torch.link.node import ArqConfig, ArqNode
 from mercury_tpu_torch.link.sim import ChannelModel, LinkSimulator
 from mercury_tpu_torch.link.tcp_api import ArqTcpServer
 from mercury_tpu_torch.link.transport import PairTransport
+from mercury_tpu_torch.modem import sync
 from mercury_tpu_torch.modem.patterns import PatternSignaler
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.stream import StreamReceiver
 from mercury_tpu_torch.modem.tx import TxChain
-from mercury_tpu_torch.scale import serve
+from mercury_tpu_torch.scale import analysis, serve, shard
 
 BATCH = 256
 # Es/N0 (dB) of each main path: 12 dB up to QPSK, then tests/test_rx.py:64's
@@ -313,10 +330,12 @@ class ShapeLog:
     version; on a path, every shape's launches are counted, and a shape
     phase 1 did not hold keeps the first path to launch it and a copy of
     its first call's operands, which hold_path_shapes holds against the
-    plain version."""
+    plain version. The TCP phase calls the wrappers from a thread a node:
+    a lock guards the notes."""
 
     def __init__(self):
         self.wrappers = {name: getattr(kernels, name) for name in KERNELS}
+        self._lock = threading.Lock()
         self.held = set()
         self.path = None
         self.unheld = {}
@@ -337,13 +356,14 @@ class ShapeLog:
 
     def note(self, name: str, a: dict) -> None:
         key = (name, shape_key(name, a))
-        if self.path is None:
-            self.held.add(key)
-            return
-        self.launches[key] = self.launches.get(key, 0) + 1
-        if key not in self.held and key not in self.unheld:
-            self.unheld[key] = {"path": self.path,
-                                "args": {k: _copy(v) for k, v in a.items()}}
+        with self._lock:
+            if self.path is None:
+                self.held.add(key)
+                return
+            self.launches[key] = self.launches.get(key, 0) + 1
+            if key not in self.held and key not in self.unheld:
+                self.unheld[key] = {"path": self.path, "args": {
+                    k: _copy(v) for k, v in a.items()}}
 
 
 def hold_path_shapes(log: ShapeLog) -> dict:
@@ -1735,6 +1755,460 @@ def drive_pools(dev: torch.device, n_ch: int = BATCH, k_syms: int = 17,
     return {"launches": launches, **out}
 
 
+def sharded_stream(g, dev: torch.device, n_rows: int, plan: dict,
+                   n_slices: int, esn0: float, seed: int):
+    """n_rows streams of n_slices slices of the standard buffer at Es/N0
+    esn0, with frames (random payloads) at plan's starts: {(row, key):
+    start} -> (stream [n_rows, n_slices * n_local], payloads {(row, key):
+    [frame_bytes]})."""
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    keys = list(plan)
+    payload = torch.randint(0, 256, (len(keys), g.frame_bytes),
+                            generator=gen, device=dev, dtype=torch.uint8)
+    frames = TxChain(g, device=dev).transmit(payload)
+    stream = sim.sigma_for_esn0(esn0) * torch.randn(
+        (n_rows, n_slices * n), generator=gen, device=dev)
+    for i, key in enumerate(keys):
+        st = plan[key]
+        stream[key[0], st: st + frames.shape[1]] += frames[i]
+    return stream, dict(zip(keys, payload))
+
+
+def ts_plan(g, n_rows: int, n_dev: int) -> dict:
+    """Frame starts of time_sharded_receive's check over n_dev slices of
+    n_local: even rows a frame in each even slice (2000 + 37 (r % 50)
+    samples after the end of the frame straddling into it) and one
+    straddling each odd slice's right seam (1/3 of a frame before it; the
+    last slice's frame stays inside it); odd rows one 8 samples
+    before the first seam and one 4 samples before the third, each claimed
+    by one of the two slices at its seam: the left one where its
+    matched-filter peak falls below the seam (and the right one's decode
+    of it is dropped by the dedupe), else the right one. -> {(row, slice,
+    or "0|1" and "2|3"): start}."""
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    fl = g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
+    plan = {}
+    for r in range(n_rows):
+        if r % 2 == 0:
+            for j in range(n_dev):
+                if j % 2 == 0:
+                    plan[r, j] = j * n + 2 * fl // 3 + 2000 + 37 * (r % 50)
+                elif j < n_dev - 1:
+                    plan[r, j] = (j + 1) * n - fl // 3
+                else:
+                    plan[r, j] = (j + 1) * n - fl - 100
+        else:
+            plan[r, "0|1"] = n - 8
+            plan[r, "2|3"] = 3 * n - 4
+    return plan
+
+
+def check_claims(label: str, res, plan: dict, payloads: dict, n_dev: int,
+                 blocks: int = 1) -> dict:
+    """Every planted frame claimed exactly once, by its slice (or either of
+    "0|1" and "2|3"), with its payload, within 16 samples; no other claim.
+    res fields [K, n_dev, B] (K = blocks) or [n_dev, B]. -> counts: frames,
+    claimed, and dedupes (a seam frame whose right-hand slice decoded it
+    too, its claim dropped)."""
+    claim = res.crc_ok.reshape(blocks * n_dev, -1).cpu()
+    delay = res.delay.reshape(blocks * n_dev, -1).cpu()
+    pay = res.payload.reshape(blocks * n_dev, res.payload.shape[-2],
+                              -1).cpu()
+    seen = set()
+    dedupes = 0
+    for (r, key), start in plan.items():
+        slices = ((int(key[0]), int(key[2])) if isinstance(key, str)
+                  else (key,))
+        got = [s for s in slices if bool(claim[s, r])]
+        assert len(got) == 1, f"{label}: row {r} frame {key} claimed by {got}"
+        s = got[0]
+        seen.add((s, r))
+        assert abs(int(delay[s, r]) - start) <= 16, (
+            f"{label}: row {r} frame {key}: delay {int(delay[s, r])} for "
+            f"start {start}")
+        assert torch.equal(pay[s, r], payloads[r, key].cpu()), (
+            f"{label}: row {r} frame {key}: payload differs")
+        if len(slices) == 2 and s == slices[0]:
+            dedupes += int(torch.equal(pay[slices[1], r],
+                                       payloads[r, key].cpu()))
+    extra = int(claim.sum()) - len(seen)
+    assert extra == 0, f"{label}: {extra} claims of no planted frame"
+    return {"frames": len(plan), "claimed": len(seen), "dedupes": dedupes}
+
+
+def plain_claims(rx, stream, n_dev: int, halo: int, sym: int) -> tuple:
+    """What time_sharded_receive must claim, from plain receives: slice j
+    of stream [B, n_dev * n] with the next `halo` samples (zeros past the
+    end) through rx.receive(sync_limit=n); a claim is a CRC pass starting
+    inside the slice, its delay global, dropped where the slice to its left
+    raw-claimed a frame within one symbol. -> (claims bool [n_dev, B],
+    delays int32 [n_dev, B], payloads [n_dev, B, frame_bytes])"""
+    b, total = stream.shape
+    n = total // n_dev
+    padded = torch.cat([stream, stream.new_zeros(b, halo)], dim=-1)
+    claims, delays, pays, raw = [], [], [], None
+    for j in range(n_dev):
+        res = rx.receive(padded[:, j * n: (j + 1) * n + halo], sync_limit=n)
+        gd = (j * n + res.delay).to(torch.int32)
+        claim = res.crc_ok & (res.delay < n)
+        kept = claim if raw is None else claim & ~(
+            raw & ((delays[-1] - gd).abs() < sym))
+        raw = claim
+        claims.append(kept)
+        delays.append(gd)
+        pays.append(res.payload)
+    return torch.stack(claims), torch.stack(delays), torch.stack(pays)
+
+
+def drive_channel_parallel(dev: torch.device) -> dict:
+    """channel_parallel_receive on virtual meshes of 1, 2 and 4 shards of
+    the one card: CONFIG_9 at 12 dB, 256 channels (every row decodes its
+    payload; payload, crc_ok and delay equal the unsharded receive's, iters
+    within one sweep; no transfer between shards), wall times host clock
+    (mean of 3 after a warm-up, each ending in a synchronize); CONFIG_0 at
+    12 dB as 4 shards x 64 rows, which launches all four kernels under
+    shards; then spmd_overhead_curve at a fixed total batch of 256 (white
+    noise, so every row decodes through all 50 LDPC sweeps)."""
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(fn):
+        kernels.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            launches[k] += kernels.LAUNCHES[k]
+        return res
+
+    g = build_geometry(9)
+    rx = RxChain(g, device=dev)
+    buf, payload, _delay = make_buffer(g, dev, 12.0, 909)
+    ref, walls = timed_runs(lambda: rx.receive(buf), 4)
+    walls = {"unsharded": float(np.mean(walls[1:]))}
+    for n in (1, 2, 4):
+        mesh = shard.make_mesh(n, devices=[dev] * n)
+        run = shard.channel_parallel_receive(rx, mesh)
+        res, ms = timed_runs(lambda: counted(lambda: run(buf)), 4)
+        walls[n] = float(np.mean(ms[1:]))
+        ok = res.crc_ok
+        assert bool(ok.all()) and torch.equal(res.payload, payload), (
+            f"channel-parallel {n}: {int(ok.sum())}/{BATCH}")
+        for f in ("payload", "crc_ok", "delay"):
+            assert torch.equal(getattr(res, f), getattr(ref, f)), (n, f)
+        assert (res.iters - ref.iters).abs().max().item() <= 1
+        assert run.log == [] and analysis.logged_transfers(run) == {}
+    print(f"channel-parallel CONFIG_9 at 12 dB, {BATCH} channels, virtual "
+          f"meshes on one card: every row decoded, payload, crc_ok and "
+          f"delay equal to the unsharded receive's, no transfer between "
+          f"shards; wall ms (mean of 3): unsharded "
+          f"{walls['unsharded']:.2f}, 1 shard {walls[1]:.2f}, 2 shards "
+          f"{walls[2]:.2f}, 4 shards {walls[4]:.2f}; vs 1 shard "
+          f"{walls[2] / walls[1]:.3f} (2), {walls[4] / walls[1]:.3f} (4)")
+    g0 = build_geometry(0)
+    rx0 = RxChain(g0, device=dev)
+    buf0, payload0, _d0 = make_buffer(g0, dev, 12.0, 910)
+    kernels.reset_launch_counts()
+    run0 = shard.channel_parallel_receive(rx0, shard.make_mesh(
+        4, devices=[dev] * 4))
+    res0, ms0 = timed_runs(lambda: run0(buf0), 2)
+    n0 = dict(kernels.LAUNCHES)
+    for k in KERNELS:
+        launches[k] += n0[k]
+    assert bool(res0.crc_ok.all()) and torch.equal(res0.payload, payload0)
+    assert all(n0[k] >= 8 for k in PATH_KERNELS[0]), n0
+    print(f"channel-parallel CONFIG_0 at 12 dB, 4 shards x {BATCH // 4} rows: "
+          f"{int(res0.crc_ok.sum())}/{BATCH} decoded, payloads equal; wall "
+          f"{ms0[0]:.2f} then {ms0[1]:.2f} ms; launches over 2 calls {n0}")
+    curve = counted(lambda: shard.spmd_overhead_curve(
+        rx, (1, 2, 4), total_batch=BATCH, reps=1, device=dev))
+    print("spmd_overhead_curve CONFIG_9, white noise, total batch "
+          f"{BATCH}, virtual meshes on one card: " + "; ".join(
+              f"{c['devices']} shards {c['wall_ms']:.2f} ms, "
+              f"{c['overhead_vs_1dev']:.3f} x 1 shard" for c in curve))
+    assert [c["devices"] for c in curve] == [1, 2, 4]
+    return {"launches": launches, "walls": walls, "curve": curve}
+
+
+def drive_time_sharded(dev: torch.device) -> dict:
+    """time_sharded_receive over 4 virtual shards: CONFIG_9 at 12 dB with
+    256 streams of 4 x 92480 samples, CONFIG_0 with 64 streams of
+    4 x 118592 (ts_plan's frames): every frame claimed exactly once with
+    its payload within 16 samples (check_claims), the dedupe dropping at
+    least one right-hand decode of a seam frame, and the claims, delays and
+    claimed payloads equal to plain_claims' (plain receives of each
+    shard's window, uncounted). The log: 3 halos and 3 dedupe rows a
+    stream batch, each halo one frame + 2 symbols of every row."""
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for cfg, rows, esn0 in ((9, BATCH, 12.0), (0, BATCH // 4, 12.0)):
+        g = build_geometry(cfg)
+        rx = RxChain(g, device=dev)
+        plan = ts_plan(g, rows, 4)
+        stream, payloads = sharded_stream(g, dev, rows, plan, 4, esn0,
+                                          cfg + 300)
+        run = shard.time_sharded_receive(rx, shard.make_mesh(
+            4, axis="t", devices=[dev] * 4))
+        kernels.reset_launch_counts()
+        res, ms = timed_runs(lambda: run(stream), 2)
+        n = dict(kernels.LAUNCHES)
+        for k in KERNELS:
+            launches[k] += n[k]
+        counts = check_claims(f"time-sharded CONFIG_{cfg}", res, plan,
+                              payloads, 4)
+        assert counts["dedupes"] > 0, counts
+        assert all(n[k] > 0 for k in PATH_KERNELS[cfg]), n
+        halo = ((g.nofdm * (g.nsymb + g.preamble_nsymb) + 2 * g.nofdm)
+                * g.interp)
+        claim, gd, pay = plain_claims(rx, stream, 4, halo, g.nofdm * g.interp)
+        assert torch.equal(res.crc_ok, claim), (
+            f"CONFIG_{cfg}: claims differ from the plain receives' on "
+            f"{int((res.crc_ok != claim).sum())} (shard, row)s")
+        assert torch.equal(res.delay[claim], gd[claim])
+        assert torch.equal(res.payload[claim], pay[claim])
+        moves = analysis.logged_transfers(run)
+        assert moves == {"halo": 3, "dedupe": 3}, moves
+        assert {e["bytes"] for e in run.log if e["kind"] == "halo"} == {
+            4 * halo * rows}
+        print(f"time-sharded CONFIG_{cfg} at {esn0} dB, {rows} streams of 4 x "
+              f"{stream.shape[1] // 4} samples on 4 virtual shards "
+              f"(windows [{rows},{stream.shape[1] // 4 + halo}]): "
+              f"{counts['claimed']}/{counts['frames']} frames claimed once, "
+              f"payloads equal, within 16 samples, claims, delays and "
+              f"payloads those of plain receives of each window; the dedupe "
+              f"dropped {counts['dedupes']} right-hand decodes of the {rows} "
+              f"seam frames; wall {ms[0]:.2f} then "
+              f"{ms[1]:.2f} ms; transfers {moves}, halo {4 * halo * rows} "
+              f"bytes each; launches over 2 calls {n}")
+        out[cfg] = ms
+    return {"launches": launches, "ms": out}
+
+
+def halo_overlap(prof, n_halo: int) -> dict:
+    """From a profile of time_sharded_receive_stream: the device intervals
+    of its halo copies (every memcpy launched inside its mercury::halo
+    ranges, linked by correlation id; there must be n_halo of them, else
+    the assertion lists each one's name and us) and how much of them
+    overlaps a kernel of the decodes (any non-memcpy, non-memset device
+    event in the window)."""
+    evs = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def span(e):
+        return e.start_ns(), e.start_ns() + e.duration_ns()
+
+    ranges = [(*span(e), e.start_thread_id()) for e in evs
+              if e.name() == "mercury::halo" and e.device_type() != cuda]
+    corr = {e.correlation_id() for e in evs
+            if e.device_type() != cuda and e.correlation_id() > 0
+            and any(a <= e.start_ns() and span(e)[1] <= b and th ==
+                    e.start_thread_id() for a, b, th in ranges)}
+    dev_evs = [e for e in evs if e.device_type() == cuda]
+    found = sorted((span(e), e.name()) for e in dev_evs
+                   if e.linked_correlation_id() in corr
+                   and "Memcpy" in e.name())
+    assert len(found) == n_halo, (
+        f"{len(found)} memcpys in the halo ranges, {n_halo} halos: "
+        f"{[(name, (b - a) / 1e3) for (a, b), name in found]}")
+    copies = [sp for sp, _name in found]
+    busy = sorted(span(e) for e in dev_evs if "Memcpy" not in e.name()
+                  and "Memset" not in e.name())
+    merged = []
+    for a, b in busy:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = sum(b - a for a, b in copies)
+    over = sum(max(0, min(b, mb) - max(a, ma))
+               for a, b in copies for ma, mb in merged)
+    return {"copies": len(copies), "copy_ns": total, "overlap_ns": over,
+            "ranges": len(ranges), "halo_ns": [b - a for a, b in copies]}
+
+
+def drive_stream_form(dev: torch.device) -> dict:
+    """time_sharded_receive_stream, CONFIG_16 at 31 dB, 256 streams of
+    K = 3 blocks over 4 virtual shards: a frame mid each even slice, one
+    straddling each odd slice's right seam (the last slice's into the next
+    block's first, completed from the halo of the next block's head; in the
+    last block it stays inside): every frame claimed exactly once. The log
+    audit: each halo of block k+1 issued before block k's decode and waited
+    on after it. Timed unprofiled (host clock), then once more under the
+    profiler: the halo copies' device time, bytes over it (a same-card
+    copy rate, not NVLink), and the share of it under a decode's kernels;
+    that rate goes into analysis.predicted_efficiency with the unsharded
+    receive's measured Msamples/s."""
+    g = build_geometry(16)
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    fl = g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
+    k_blocks, n_dev = 3, 4
+    plan = {}
+    for r in range(BATCH):
+        for k in range(k_blocks):
+            for j in range(n_dev):
+                sl = k * n_dev + j
+                if j % 2 == 0:
+                    plan[r, sl] = sl * n + 20000 + 53 * (r % 64)
+                elif sl < k_blocks * n_dev - 1:
+                    plan[r, sl] = (sl + 1) * n - fl // 3
+                else:
+                    plan[r, sl] = (sl + 1) * n - fl - 100
+    stream, payloads = sharded_stream(g, dev, BATCH, plan, k_blocks * n_dev,
+                                      31.0, 316)
+    x = stream.reshape(BATCH, k_blocks, n_dev * n)
+    rx = RxChain(g, device=dev)
+    run = shard.time_sharded_receive_stream(rx, shard.make_mesh(
+        n_dev, axis="t", devices=[dev] * n_dev), n_blocks=k_blocks)
+    kernels.reset_launch_counts()
+    res, ms = timed_runs(lambda: run(x), 2)
+    launches = dict(kernels.LAUNCHES)
+    counts = check_claims("stream form CONFIG_16", res, plan, payloads,
+                          n_dev, k_blocks)
+    rep = analysis.audit_overlap_structure(run)
+    assert rep["overlap_scheduled"], rep
+    assert all(launches[k] > 0 for k in PATH_KERNELS[16]), launches
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(x)
+        torch.cuda.synchronize()
+    n_halo = rep["transfers"]["halo"]
+    ov = halo_overlap(prof, n_halo)
+    assert ov["ranges"] == n_halo, (ov, rep)
+    halo_bytes = rep["halo_bytes"]
+    rate = n_halo * halo_bytes / (ov["copy_ns"] * 1e-9)
+    single, t1 = timed_runs(lambda: rx.receive(x[:, 0, :n]), 4)
+    msps = BATCH * n / (min(t1[1:]) * 1e-3) / 1e6
+    pred = analysis.predicted_efficiency(msps, g, link_bytes_per_s=rate)
+    print(f"stream form CONFIG_16 at 31 dB, {BATCH} streams, K = {k_blocks} "
+          f"blocks of {n_dev} x {n} on {n_dev} virtual shards: "
+          f"{counts['claimed']}/{counts['frames']} frames claimed once, "
+          f"payloads equal, within 16 samples; wall {ms[0]:.2f} then "
+          f"{ms[1]:.2f} ms; audit {rep}; launches over 2 calls {launches}")
+    print(f"stream form halo copies under the profiler: {ov['copies']} "
+          f"copies of {halo_bytes} bytes, {ov['copy_ns'] / 1e3:.3f} us of "
+          f"device time in all, {100 * ov['overlap_ns'] / ov['copy_ns']:.1f}% "
+          f"of it under a decode's kernels (each halo copy "
+          f"{min(ov['halo_ns']) / 1e3:.3f}-{max(ov['halo_ns']) / 1e3:.3f} us, "
+          f"the only memcpys in the halo ranges); same-card copy rate "
+          f"{rate / 1e9:.1f} GB/s (one card's memory, not NVLink); "
+          f"unsharded CONFIG_16 receive {min(t1[1:]):.2f} ms = {msps:.3f} "
+          f"Msamples/s; predicted_efficiency at that rate: "
+          f"{json.dumps(pred)}")
+    return {"launches": launches, "ms": ms, "overlap": ov, "rate": rate}
+
+
+def drive_mesh_2d(dev: torch.device) -> dict:
+    """A 2 x 2 (dcn, t) virtual mesh: CONFIG_16 at 31 dB, 2 groups x 128
+    streams of 2 x 72896 samples (a frame mid slice 0 and one straddling
+    the seam on every row): every frame claimed once, and no transfer
+    between the groups."""
+    g = build_geometry(16)
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    fl = g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
+    plan = {}
+    for r in range(BATCH):
+        plan[r, 0] = n - fl // 2
+        plan[r, 1] = n + 20000 + 41 * (r % 64)
+    stream, payloads = sharded_stream(g, dev, BATCH, plan, 2, 31.0, 2)
+    mesh = shard.make_mesh_2d(2, 2, axes=("dcn", "t"), devices=[dev] * 4)
+    run = shard.time_sharded_receive(RxChain(g, device=dev), mesh,
+                                     time_axis="t", batch_axis="dcn")
+    kernels.reset_launch_counts()
+    res, ms = timed_runs(lambda: run(stream), 2)
+    launches = dict(kernels.LAUNCHES)
+    counts = check_claims("2-D mesh CONFIG_16", res, plan, payloads, 2)
+    moves = [e for e in run.log if "bytes" in e]
+    assert moves and all(e["src"].split(".")[0] == e["dst"].split(".")[0]
+                         for e in moves), moves
+    print(f"2 x 2 (dcn, t) virtual mesh, CONFIG_16 at 31 dB, 2 groups x "
+          f"{BATCH // 2} streams of 2 x {n}: {counts['claimed']}/"
+          f"{counts['frames']} frames claimed once; {len(moves)} transfers, "
+          f"none between groups; wall {ms[0]:.2f} then {ms[1]:.2f} ms; "
+          f"launches over 2 calls {launches}")
+    return {"launches": launches}
+
+
+def drive_ts_fir(dev: torch.device) -> None:
+    """time_sharded_fir over 4 virtual shards: CONFIG_0's data taps on
+    [256, 4 x 92480] white noise, within rtol 1e-5 / atol 1e-6 of the
+    unsharded ops.fir_same (both cuDNN conv1d, TF32 off)."""
+    g = build_geometry(0)
+    taps = g.fir_rx_data.astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((BATCH, 4 * 92480), generator=gen, device=dev)
+    f = shard.time_sharded_fir(shard.make_mesh(4, axis="t",
+                                               devices=[dev] * 4), taps)
+    got, ms = timed_runs(lambda: f(x), 3)
+    want = ops.fir_same(x, torch.as_tensor(taps, device=dev))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    err = (got - want).abs().max().item()
+    print(f"time_sharded_fir [{BATCH},{4 * 92480}] on 4 virtual shards: max "
+          f"abs err {err:.3e} against the unsharded ops.fir_same (rtol "
+          f"1e-5, atol 1e-6); {len(f.log)} halos of "
+          f"{f.log[0]['bytes']} bytes; wall {ms[1]:.2f} / {ms[2]:.2f} ms")
+
+
+def drive_deep_profiles(dev: torch.device) -> dict:
+    """deep_profile "c2f" and "full" at CONFIG_3, 10 dB, batch 256: every
+    row decodes its payload; receive times host clock."""
+    g = build_geometry(3)
+    buf, payload, delay = make_buffer(g, dev, 10.0, 303)
+    launches = dict.fromkeys(KERNELS, 0)
+    for profile in ("c2f", "full"):
+        rx = RxChain(g, device=dev, deep_profile=profile)
+        kernels.reset_launch_counts()
+        res, ms = timed_runs(lambda: rx.receive(buf), 3)
+        n = dict(kernels.LAUNCHES)
+        for k in KERNELS:
+            launches[k] += n[k]
+        ok = res.crc_ok
+        assert bool(ok.all()) and torch.equal(res.payload, payload), (
+            f"CONFIG_3 {profile}: {int(ok.sum())}/{BATCH}")
+        assert (res.delay - delay).abs().max().item() <= g.ngi * g.interp
+        assert all(n[k] > 0 for k in PATH_KERNELS[3]), n
+        print(f"deep_profile {profile!r} CONFIG_3 at 10 dB: {BATCH}/{BATCH} "
+              f"decoded, payloads equal; receive {ms[0]:.2f}, "
+              f"{ms[1]:.2f}, {ms[2]:.2f} ms; launches over 3 {n}")
+    return {"launches": launches}
+
+
+def drive_legacy(dev: torch.device) -> None:
+    """The legacy guard-interval metrics and coherent_preamble_rescore once
+    each on the card, against the same call on the CPU: rtol / atol 1e-3
+    for the metrics (window sums as differences of float32 prefix sums over
+    the row, summed in another order on the card), rtol 1e-4 / atol 1e-5
+    for the rescore (a float32 matmul at full precision on both)."""
+    g = build_geometry(0)
+    rx = RxChain(g, device=dev)
+    buf, _payload, delay = make_buffer(g, dev, 6.0, 404)
+    bb = rx.to_baseband(buf[:8], data_fir=False)            # [8, n]
+    bb_ts = bb[:, ::g.interp].contiguous()
+    frame = rx.extract_frame(bb, torch.full((8,), delay, device=dev))
+    mf_d = 2 * g.interp
+    grid, bank, _pil, _prep = rx._coherent_banks(mf_d)
+    bank = bank.reshape(len(grid), g.preamble_nsymb, -1)
+    cands = (delay // mf_d * mf_d + mf_d * torch.tensor(
+        [-2, 0, 3, 40], device=dev))[None].expand(8, -1).contiguous()
+    calls = {
+        "gi_time_sync_metric": lambda b, *_: sync.gi_time_sync_metric(
+            b, g, decim=g.interp, ts_nsymb=4),
+        "gi_symbol_sync_metric": lambda _b, f, *_: sync.gi_symbol_sync_metric(
+            f, g),
+        "coherent_preamble_rescore":
+            lambda b, _f, c, k: sync.coherent_preamble_rescore(
+                b, c, k, 2, g.interp)}
+    for name, fn in calls.items():
+        got = fn(bb_ts, frame, cands, bank)
+        want = fn(bb_ts.cpu(), frame.cpu(), cands.cpu(), bank.cpu())
+        tol = 1e-4 if name == "coherent_preamble_rescore" else 1e-3
+        torch.testing.assert_close(got.cpu(), want, rtol=tol,
+                                   atol=tol / 10 if tol < 1e-3 else tol)
+        print(f"{name} on the card {list(got.shape)}: max abs err "
+              f"{(got.cpu() - want).abs().max().item():.3e} against the CPU")
+    score = calls["coherent_preamble_rescore"](bb_ts, frame, cands, bank)
+    assert (score[:, 1].argmax(-1) == len(grid) // 2).all(), score[:, 1]
+
+
 def decode_golden(cfg: int, dev: torch.device, density: int = HIGH_DENSITY,
                   estimator: str = "auto") -> None:
     rx = RxChain(build_geometry(cfg, density, estimator=estimator),
@@ -1830,6 +2304,19 @@ def main() -> int:
     run("tcp", drive_tcp, dev)
     run("pools", drive_pools, dev)
     print(f"link, tcp and pool phases: {time.perf_counter() - t_new:.1f} s")
+    # multi-device receive on virtual meshes of the one card, the deep
+    # profiles and the legacy metrics
+    t_new = time.perf_counter()
+    run("channel-parallel", drive_channel_parallel, dev)
+    run("time-sharded", drive_time_sharded, dev)
+    run("stream form", drive_stream_form, dev)
+    run("2-D mesh", drive_mesh_2d, dev)
+    run("deep profiles", drive_deep_profiles, dev)
+    log.path = "sharded FIR and legacy metrics"
+    drive_ts_fir(dev)
+    drive_legacy(dev)
+    print(f"sharded receive, deep profile and legacy phases: "
+          f"{time.perf_counter() - t_new:.1f} s")
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     log.path = "golden"
     for cfg in (0, 3, 9):

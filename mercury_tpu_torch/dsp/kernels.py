@@ -4,12 +4,15 @@ PyTorch version.
 A wrapper takes the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel (built at first use by `native.load_library`)
 or raises; there is no fallback. `LAUNCHES` counts kernel launches, one per
-wrapper call that reaches the card.
+wrapper call that reaches the card; the counts and each launch are safe
+to call from several threads, and a launch runs on its operands' card
+whatever device the calling thread has current.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -18,13 +21,31 @@ from mercury_tpu_torch.dsp import ops
 
 LAUNCHES = {"mix_fir_decimate": 0, "deep_mf_score": 0, "deep_mf_max": 0,
             "pilot_cand_score": 0}
+_LAUNCHES_LOCK = threading.Lock()
 # hypotheses per FFT pass of deep_mf_max_ref: bounds its [B, A, 2w+1] surface
 _MAX_CHUNK = 8
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _launch(name: str, t: torch.Tensor, entry, *args) -> None:
+    """Call the C entry point `entry` with the current stream of t's card
+    appended, under that card as the current device (cudaFuncSetAttribute
+    and the launch act on the thread's current device); raise on an error,
+    else count the launch."""
+    with torch.cuda.device(t.device):
+        err = entry(*args, _stream(t))
+    _check(err, name)
+    _count(name)
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _check(err: int, name: str) -> None:
@@ -47,12 +68,13 @@ def _require(cond: bool, msg: str) -> None:
 
 def row_rotation(freq: torch.Tensor, fs: float,
                  idx: torch.Tensor) -> torch.Tensor:
-    """e^{j 2 pi freq[b] idx / fs} as complex64: freq [B] Hz, idx [B, L] (or
-    [L]) sample indices; the phase in float64, reduced mod 2 pi before the
-    rounding."""
+    """e^{j 2 pi freq[b] idx / fs} as complex64 (complex128 for a float64
+    freq): freq [B] Hz, idx [B, L] (or [L]) sample indices; the phase in
+    float64, reduced mod 2 pi before the rounding."""
     w = freq.to(torch.float64) * (2.0 * math.pi / fs)
     ph = torch.remainder(w[:, None] * idx.to(torch.float64), 2.0 * math.pi)
-    return torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+    rot = torch.polar(torch.ones_like(ph), ph)
+    return rot if freq.dtype == torch.float64 else rot.to(torch.complex64)
 
 
 def mix_fir_decimate_ref(pb: torch.Tensor, osc: torch.Tensor,
@@ -132,16 +154,13 @@ def mix_fir_decimate(pb: torch.Tensor, osc: torch.Tensor, taps: torch.Tensor,
                  f"mix_fir_decimate: expected contiguous {dt} {shape} on "
                  f"{pb.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     out = torch.empty((b, n_out), dtype=torch.complex64, device=pb.device)
-    lib = native.load_library()
     # a NULL start: every row starts at 0, and rows share oscillator reads
-    err = lib.mfd_launch(pb.data_ptr(), osc.data_ptr(), taps.data_ptr(),
-                         None if start is None else start.data_ptr(),
-                         None if freq is None else freq.data_ptr(),
-                         0.0 if freq is None else float(fs),
-                         out.data_ptr(), b, n, n_out, stride, offset, ntaps,
-                         _stream(pb))
-    _check(err, "mix_fir_decimate")
-    LAUNCHES["mix_fir_decimate"] += 1
+    _launch("mix_fir_decimate", pb, native.load_library().mfd_launch,
+            pb.data_ptr(), osc.data_ptr(), taps.data_ptr(),
+            None if start is None else start.data_ptr(),
+            None if freq is None else freq.data_ptr(),
+            0.0 if freq is None else float(fs),
+            out.data_ptr(), b, n, n_out, stride, offset, ntaps)
     return out
 
 
@@ -276,12 +295,9 @@ def deep_mf_score(seg: torch.Tensor, bank: torch.Tensor, window: int,
     a, lp, s = bank.shape
     n_cand = 2 * window + 1
     out = torch.empty((b, a, n_cand), dtype=torch.float32, device=seg.device)
-    lib = native.load_library()
-    err = lib.dmf_launch(seg.data_ptr(), tmpl.data_ptr(), ce.data_ptr(),
-                         ef.data_ptr(), out.data_ptr(), b, a, seg_len, lp, s,
-                         n_cand, 8 * tmpl.shape[2], _stream(seg))
-    _check(err, "deep_mf_score")
-    LAUNCHES["deep_mf_score"] += 1
+    _launch("deep_mf_score", seg, native.load_library().dmf_launch,
+            seg.data_ptr(), tmpl.data_ptr(), ce.data_ptr(), ef.data_ptr(),
+            out.data_ptr(), b, a, seg_len, lp, s, n_cand, 8 * tmpl.shape[2])
     return out
 
 
@@ -325,13 +341,10 @@ def deep_mf_max(seg: torch.Tensor, bank: torch.Tensor, window: int
     n_cand = 2 * window + 1
     smax = torch.empty((b, n_cand), dtype=torch.float32, device=seg.device)
     sarg = torch.empty((b, n_cand), dtype=torch.int64, device=seg.device)
-    lib = native.load_library()
-    err = lib.dmf_max_launch(seg.data_ptr(), tmpl.data_ptr(), ce.data_ptr(),
-                             ef.data_ptr(), smax.data_ptr(), sarg.data_ptr(),
-                             b, a, seg_len, lp, s, n_cand, 8 * tmpl.shape[2],
-                             _stream(seg))
-    _check(err, "deep_mf_max")
-    LAUNCHES["deep_mf_max"] += 1
+    _launch("deep_mf_max", seg, native.load_library().dmf_max_launch,
+            seg.data_ptr(), tmpl.data_ptr(), ce.data_ptr(), ef.data_ptr(),
+            smax.data_ptr(), sarg.data_ptr(), b, a, seg_len, lp, s, n_cand,
+            8 * tmpl.shape[2])
     return smax, sarg
 
 
@@ -432,11 +445,8 @@ def pilot_cand_score(bb_dec: torch.Tensor, idx0: torch.Tensor,
     idx0, fidx, bank_t, e_t = (t.contiguous() for t in
                                (idx0.long(), fidx.long(), bank_t, e_t))
     out = torch.empty((b, m), dtype=torch.float32, device=bb_dec.device)
-    lib = native.load_library()
-    err = lib.pcs_launch(bb_dec.data_ptr(), idx0.data_ptr(), fidx.data_ptr(),
-                         bank_t.data_ptr(), e_t.data_ptr(), out.data_ptr(),
-                         b, n_dec, bb_dec.stride(0), bb_dec.stride(1), m,
-                         f_n, nsym, s_d, _stream(bb_dec))
-    _check(err, "pilot_cand_score")
-    LAUNCHES["pilot_cand_score"] += 1
+    _launch("pilot_cand_score", bb_dec, native.load_library().pcs_launch,
+            bb_dec.data_ptr(), idx0.data_ptr(), fidx.data_ptr(),
+            bank_t.data_ptr(), e_t.data_ptr(), out.data_ptr(), b, n_dec,
+            bb_dec.stride(0), bb_dec.stride(1), m, f_n, nsym, s_d)
     return out

@@ -7,7 +7,9 @@ over. Signals are [B, n] (real or complex) unless a docstring says otherwise.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import numpy as np
 import torch
@@ -75,13 +77,13 @@ def mix_to_passband(x: torch.Tensor, fs: float, fc: float, amp: float,
     return x.real * amp * torch.cos(ph) + x.imag * amp * torch.sin(ph)
 
 
-def mixer_table(n: int, fc: float, fs: float,
-                device: torch.device) -> torch.Tensor:
+def mixer_table(n: int, fc: float, fs: float, device: torch.device,
+                dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     """The down-mixer's oscillator sqrt(2)*exp(+j*2*pi*fc/fs*i), i < n:
-    float64 phase on the host, complex64 on `device`."""
+    float64 phase on the host, `dtype` on `device`."""
     ph = (2 * np.pi * fc / fs) * np.arange(n, dtype=np.float64)
-    osc = (np.sqrt(2.0) * (np.cos(ph) + 1j * np.sin(ph))).astype(np.complex64)
-    return torch.as_tensor(osc, device=device)
+    osc = np.sqrt(2.0) * (np.cos(ph) + 1j * np.sin(ph))
+    return torch.as_tensor(osc).to(dtype).to(device)
 
 
 def peak_clip(x: torch.Tensor, papr_db: float) -> torch.Tensor:
@@ -109,3 +111,32 @@ def ofdm_demod(samples: torch.Tensor, pad_map: torch.Tensor, nfft: int,
     td = samples[..., ngi:ngi + nfft]
     spec = torch.fft.fft(td, dim=-1) / nfft
     return spec[..., pad_map]
+
+
+# blocks inside full_fp32_matmul, and the setting they found
+_PRECISION_LOCK = threading.Lock()
+_precision_users = 0
+_precision_saved = "highest"
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Float32 matmuls at full precision (TF32 off) within the block, as
+    JAX's Precision.HIGHEST: the receive's LS estimation operator and the
+    coherent preamble re-score run on noise-dominated samples at threshold.
+    The setting is process-wide, so the blocks of all threads share it:
+    the first to enter saves the caller's setting and sets "highest", the
+    last to leave restores it."""
+    global _precision_users, _precision_saved
+    with _PRECISION_LOCK:
+        if _precision_users == 0:
+            _precision_saved = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("highest")
+        _precision_users += 1
+    try:
+        yield
+    finally:
+        with _PRECISION_LOCK:
+            _precision_users -= 1
+            if _precision_users == 0:
+                torch.set_float32_matmul_precision(_precision_saved)

@@ -38,7 +38,6 @@ axis. Float32 matmuls run at full precision (no TF32) inside `receive`.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import threading
@@ -59,10 +58,13 @@ from mercury_tpu_torch.fec.tables import load_code
 from mercury_tpu_torch.modem import mfsk, psk, sync
 
 PILOT_BOOST = 1.33
-DEEP_GRID_HZ = 30.0      # whole-buffer scan CFO grid ("pruned" profile)
+DEEP_GRID_HZ = 30.0      # whole-buffer scan CFO grid ("pruned", "c2f")
+DEEP_FULL_GRID_HZ = 15.0  # whole-buffer scan CFO grid ("full" profile)
+C2F_TOPN = 4             # c2f: scan rows that join the refinement
 DEEP_COH_GRID_HZ = 4.0   # coherent whole-buffer scan CFO grid (CONFIG_0)
 DEEP_PIL_TOPM = 32       # coherent-scan nominees the pilot lattice re-scores
 LDPC_ALGOS = ("spa", "minsum", "layered", "layered-minsum")
+STAGES = ("sync", "arb", "refine", "hyp", "full")
 
 
 @dataclass
@@ -265,39 +267,6 @@ def _cis(theta: torch.Tensor) -> torch.Tensor:
 # share chains across threads (ArqTcpServer drives each node from its own)
 _CACHE_LOCK = threading.Lock()
 
-# receives inside _full_fp32_matmul, and the setting they found
-_PRECISION_LOCK = threading.Lock()
-_precision_users = 0
-_precision_saved = "highest"
-
-
-@contextlib.contextmanager
-def _full_fp32_matmul():
-    """Float32 matmuls at full precision (TF32 off) within the block: the
-    LS estimation operator runs on noise-dominated pilots at threshold.
-    The setting is process-wide, so the blocks of all threads share it:
-    the first to enter saves the caller's setting and sets "highest", the
-    last to leave restores it."""
-    global _precision_users, _precision_saved
-    with _PRECISION_LOCK:
-        if _precision_users == 0:
-            _precision_saved = torch.get_float32_matmul_precision()
-            torch.set_float32_matmul_precision("highest")
-        _precision_users += 1
-    try:
-        yield
-    finally:
-        with _PRECISION_LOCK:
-            _precision_users -= 1
-            if _precision_users == 0:
-                torch.set_float32_matmul_precision(_precision_saved)
-
-
-def _roadmap(item: int | str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mercury_tpu_torch yet (ROADMAP.md §1, "
-        f"item {item})")
-
 
 class RxChain(nn.Module):
     """Per-mode RX program for every mode (CONFIG_0-16, 100-102).
@@ -326,8 +295,16 @@ class RxChain(nn.Module):
     fails is decoded once more at the runner-up sync candidate. Deep sync,
     DD and BICM-ID do not apply (dd or bicm_iters raise ValueError).
 
-    deep_profile "c2f" and "full" raise NotImplementedError naming their
-    ROADMAP item. `recovery` counts the rows re-decoded by BICM-ID, by DD
+    deep_profile (deep sync without deep_coherent): "pruned" scans the
+    whole buffer on a 30 Hz CFO grid whose rows join the arbitration,
+    "full" on a 15 Hz grid; "c2f" takes the 30 Hz scan's best 4 (delay,
+    CFO) rows into the matched-filter refinement beside the Schmidl-Cox
+    candidates, whose bank gains +-15 Hz offsets (c2f replaces the coherent
+    scan, as in the JAX chain). real_dtype torch.float64 runs the front
+    end, sync and estimation in float64 (the LDPC stays float32, as the JAX
+    decoder); the kernels are float32, so it needs device="cpu"
+    (ValueError on a card).
+    `recovery` counts the rows re-decoded by BICM-ID, by DD
     and at the MFSK runner-up candidate, summed over passes and calls
     (reset_recovery sets them to 0).
 
@@ -336,19 +313,30 @@ class RxChain(nn.Module):
     convert.resolve_device).
     """
 
-    def __init__(self, geom: ModeGeometry, device=None, ctrl: bool = False,
+    def __init__(self, geom: ModeGeometry, device=None,
+                 real_dtype: torch.dtype = torch.float32, ctrl: bool = False,
                  cfo_range: str = "wide", deep_sync: bool | None = None,
                  ldpc_algo: str = "layered", deep_profile: str = "pruned",
-                 deep_coherent: bool | None = None, dd: bool | None = None,
-                 bicm_iters: int | None = None,
+                 deep_coherent: bool | None = None,
+                 dd: bool | None = None, bicm_iters: int | None = None,
                  dd_window: tuple[int, int] | None = None,
                  dd_passes: int = 1, ldpc_max_iter: int = 50,
                  llr_scale: float | None = None, mfsk_soft: str = "sumexp",
                  mfsk_noise_pool: bool = True, mfsk_sync_cands: int = 2,
                  mfsk_exp_scale: float = 1.0, mfsk_clamp: float = 5.0):
+        # the constructor's options as given, for replica()
+        options = {k: v for k, v in locals().items()
+                   if k not in ("self", "geom", "device", "__class__")}
         super().__init__()
         g = geom
         device = resolve_device(device)
+        if real_dtype not in (torch.float32, torch.float64):
+            raise ValueError("real_dtype must be torch.float32 or "
+                             "torch.float64")
+        if real_dtype == torch.float64 and device.type != "cpu":
+            raise ValueError("real_dtype=torch.float64 runs the plain "
+                             "versions only (the CUDA kernels are float32): "
+                             "pass device='cpu'")
         is_mfsk = g.spec.is_mfsk
         if ctrl and not (is_mfsk and g.spec.ctrl_nbits > 0):
             raise ValueError("ctrl frames exist only for ROBUST_0/ROBUST_1")
@@ -358,9 +346,6 @@ class RxChain(nn.Module):
             raise ValueError("deep_profile must be 'pruned', 'c2f' or 'full'")
         if mfsk_soft not in ("sumexp", "maxlog"):
             raise ValueError("mfsk_soft must be 'sumexp' or 'maxlog'")
-        # the MFSK receive reads neither option
-        if deep_profile != "pruned" and not is_mfsk:
-            raise _roadmap("8a", f"deep_profile={deep_profile!r}")
         if deep_sync is None:
             deep_sync = not is_mfsk and g.spec.config <= 4
         if deep_coherent is None:
@@ -392,11 +377,17 @@ class RxChain(nn.Module):
             dd_window = (LS_WINDOW, LS_WINDOW)
         if dd_window[0] % 2 == 0 or dd_window[1] % 2 == 0:
             raise ValueError("dd_window spans must be odd")
+        self._options = options
         self.geom = g
+        self.real_dtype = real_dtype
+        self.cdtype = (torch.complex128 if real_dtype == torch.float64
+                       else torch.complex64)
         self.zf = zf
         self.cfo_range = cfo_range
         self.deep_sync = bool(deep_sync)
-        self.deep_coherent = self.deep_sync and bool(deep_coherent)
+        self.deep_profile = deep_profile
+        self.deep_coherent = (self.deep_sync and bool(deep_coherent)
+                              and deep_profile != "c2f")
         self.ldpc_algo = ldpc_algo
         self.dd = bool(dd)
         self.dd_window = (int(dd_window[0]), int(dd_window[1]))
@@ -414,6 +405,10 @@ class RxChain(nn.Module):
         arrays, scalars = host_constants(g, self.deep_sync, self.dd,
                                          self.dd_window)
         for name, t in rx_state_from_numpy(arrays, device).items():
+            if t.is_floating_point() and name != "_crc_a":
+                t = t.to(real_dtype)
+            elif t.is_complex():
+                t = t.to(self.cdtype)
             self.register_buffer(name, t)
         for name, value in scalars.items():     # the estimator's scalars
             setattr(self, name, value)
@@ -435,6 +430,16 @@ class RxChain(nn.Module):
         self._bank_cache: dict = {}
         self.reset_recovery()
         self.to(device)
+
+    def replica(self, device) -> "RxChain":
+        """A chain built on `device` with this chain's options, buffers and
+        LDPC cap and LLR scale; its caches and recovery counts are its own
+        (a scale.shard shard's chain)."""
+        twin = RxChain(self.geom, device=device, **self._options)
+        twin.load_state_dict(self.state_dict())
+        twin.set_ldpc_max_iter(self.ldpc_max_iter)
+        twin.llr_scale = self.llr_scale
+        return twin
 
     def reset_recovery(self) -> None:
         self.recovery = {"bicm_rows": 0, "dd_rows": 0, "mfsk_rows": 0}
@@ -460,7 +465,8 @@ class RxChain(nn.Module):
                 arr = self._osc_cache.get(key)
                 if arr is None:
                     arr = self._osc_cache[key] = ops.mixer_table(
-                        n, self.geom.fc, self.geom.fs, self.device)
+                        n, self.geom.fc, self.geom.fs, self.device,
+                        self.cdtype)
         return arr
 
     def mix(self, pb: torch.Tensor, freq_offset=0.0) -> torch.Tensor:
@@ -468,11 +474,12 @@ class RxChain(nn.Module):
         scalar), unfiltered."""
         g = self.geom
         n = pb.shape[-1]
-        pb = pb.to(torch.float32)
+        pb = pb.to(self.real_dtype)
         if isinstance(freq_offset, (int, float)) and freq_offset == 0.0:
             return pb * self._osc_const(n)
-        t = torch.arange(n, dtype=torch.float32, device=pb.device)
-        f = torch.as_tensor(freq_offset, dtype=torch.float32, device=pb.device)
+        t = torch.arange(n, dtype=self.real_dtype, device=pb.device)
+        f = torch.as_tensor(freq_offset, dtype=self.real_dtype,
+                            device=pb.device)
         f = f.reshape(-1, 1) if f.ndim else f
         ph = (2 * math.pi / g.fs) * (g.fc + f) * t
         return pb * math.sqrt(2.0) * _cis(ph)
@@ -484,7 +491,7 @@ class RxChain(nn.Module):
         if freq_offset is None or (isinstance(freq_offset, (int, float))
                                    and freq_offset == 0.0):
             return None
-        f = torch.as_tensor(freq_offset, dtype=torch.float32,
+        f = torch.as_tensor(freq_offset, dtype=self.real_dtype,
                             device=self.device)
         return f.expand(b).contiguous() if f.ndim == 0 else f.contiguous()
 
@@ -870,7 +877,7 @@ class RxChain(nn.Module):
         decision-directed passes when on. The harness has no dispersal, so
         the decoded bits feed the re-estimate directly."""
         g = self.geom
-        with _full_fp32_matmul():
+        with ops.full_fp32_matmul():
             llr, (flat, slope, data, variance, _m, _v) = self._ofdm_llr(grid)
             bits, _it, conv = self._decode_codeword(llr, data, variance)
 
@@ -890,10 +897,11 @@ class RxChain(nn.Module):
                       symbol_step: int = 0):
         """[F, Lp, S] bank of decimated templates [Lp, S] rotated by
         e^{-j w_f t} (CFO hypotheses on the template side), float64 phase
-        then complex64, as the JAX chain builds it on the host. t is the
-        sample's time within its symbol (symbol_step 0), or its absolute
-        time t = k*mf_d + l*symbol_step, which keeps the phase running from
-        one symbol to the next for a coherent sum over symbols."""
+        then the chain's complex type, as the JAX chain builds it on the
+        host. t is the sample's time within its symbol (symbol_step 0), or
+        its absolute time t = k*mf_d + l*symbol_step, which keeps the phase
+        running from one symbol to the next for a coherent sum over
+        symbols."""
         dev = tmpl_d.device
         lp, s = tmpl_d.shape
         t = (torch.arange(s, dtype=torch.float64, device=dev)[None] * mf_d
@@ -901,7 +909,7 @@ class RxChain(nn.Module):
              * symbol_step)
         f = torch.as_tensor(np.asarray(freqs, np.float64), device=dev)
         rot = _cis((-(2 * np.pi / self.geom.fs) * f)[:, None, None] * t[None])
-        return (tmpl_d.to(torch.complex128)[None] * rot).to(torch.complex64)
+        return (tmpl_d.to(torch.complex128)[None] * rot).to(self.cdtype)
 
     def _coherent_banks(self, mf_d: int):
         """CONFIG_0's CFO grid [F] (4 Hz steps over +-120 Hz, or +-45 Hz
@@ -933,13 +941,16 @@ class RxChain(nn.Module):
             self._bank_cache[key] = banks
         return banks
 
-    def _coherent_acquire(self, bb_ts: torch.Tensor, mf_d: int, ts_dec: int):
+    def _coherent_acquire(self, bb_ts: torch.Tensor, mf_d: int, ts_dec: int,
+                          sync_limit: int | None = None, stage: str = "full"):
         """CONFIG_0's coherent whole-buffer acquisition (mercury_tpu rx.py
         :1342-1422): the full preamble scored coherently at every lag for
-        each row of a 4 Hz CFO grid, max-combined over the grid; the top
-        pooled peaks re-scored against the pilot lattice. -> (delay [B],
-        coarse CFO [B], runner-up delay [B] outside the winner's GI plateau,
-        its CFO [B], whether a row has one [B])."""
+        each row of a 4 Hz CFO grid, max-combined over the grid (lags at or
+        past sync_limit interp samples masked out); the top pooled peaks
+        re-scored against the pilot lattice. -> (delay [B], coarse CFO [B],
+        runner-up delay [B] outside the winner's GI plateau, its CFO [B],
+        whether a row has one [B]); stage "arb": the nominees (delay, scan
+        score, CFO), each [M, B]."""
         g = self.geom
         mf_s = mf_d // ts_dec
         lp, s_tmpl = self._mf_templates.shape
@@ -947,14 +958,19 @@ class RxChain(nn.Module):
         win_g = (bb_ts.shape[-1] // mf_s - span) // 2
         seg_g = bb_ts[:, : (2 * win_g + span) * mf_s: mf_s]
         grid, bank_coh, bank_pil, pil_prep = self._coherent_banks(mf_d)
+        grid_t = torch.as_tensor(grid, dtype=self.real_dtype,
+                                 device=bb_ts.device)
         smax, sarg = sync.coherent_scan_max(seg_g, bank_coh, win_g)
-        d_lag, _ = sync.topk_pooled(smax, 0, DEEP_PIL_TOPM, 8)   # [B, M]
+        if sync_limit is not None:
+            lag = torch.arange(smax.shape[-1], device=smax.device) * mf_d
+            smax = torch.where(lag[None] >= sync_limit, -math.inf, smax)
+        d_lag, s_top = sync.topk_pooled(smax, 0, DEEP_PIL_TOPM, 8)  # [B, M]
         f_top = torch.gather(sarg, 1, d_lag)
         d_top = d_lag * mf_d                        # interp-rate starts
+        if stage == "arb":
+            return d_top.T, s_top.T, grid_t[f_top].T
         score_p = sync.pilot_rescore(bb_ts, d_top, f_top, bank_pil, mf_s,
                                      ts_dec, lp * s_tmpl, pil_prep)  # [B, M]
-        grid_t = torch.as_tensor(grid, dtype=torch.float32,
-                                 device=bb_ts.device)
 
         def pick(score):
             i = torch.argmax(score, dim=-1, keepdim=True)
@@ -966,11 +982,14 @@ class RxChain(nn.Module):
         delay2, cfo2 = pick(torch.where(far, score_p, -math.inf))
         return delay, coarse_cfo, delay2, cfo2, torch.any(far, dim=-1)
 
-    def _acquire(self, pb: torch.Tensor):
+    def _acquire(self, pb: torch.Tensor, sync_limit: int | None = None,
+                 stage: str = "full"):
         """Coarse sync + matched-filter arbitration -> (delay [B],
         coarse CFO [B], sync metric [B], rescue). rescue is None, or on the
         coherent path (delay, coarse CFO, eligible) [B] of the runner-up
-        candidate."""
+        candidate. Only frame starts below sync_limit (interp samples) are
+        eligible. stage "sync" returns the Schmidl-Cox candidates (starts,
+        CFOs: lists of [B]; metric [B]), "arb" the arbitration's stacks."""
         g = self.geom
         b, n = pb.shape
         dev = pb.device
@@ -984,9 +1003,11 @@ class RxChain(nn.Module):
         cand_step = ts_dec * sc_scan
         met, cfo_arr = sync.schmidl_cox_metric(bb_ts, g, decim=ts_dec,
                                                scan=sc_scan)
+        pos = torch.arange(met.shape[-1], device=dev)
+        if sync_limit is not None:
+            met = torch.where(pos[None] * cand_step >= sync_limit, 0.0, met)
         n_k = 3 if self.cfo_range == "wide" else 2
         sym_cand = max((g.nofdm * g.interp) // cand_step, 1)
-        pos = torch.arange(met.shape[-1], device=dev)
         met_work = met
         cands, cfo_c, metrics = [], [], []
         for _ in range(n_k):
@@ -996,6 +1017,8 @@ class RxChain(nn.Module):
             cfo_c.append(torch.gather(cfo_arr, 1, idx_k[:, None])[:, 0])
             suppress = torch.abs(pos[None] - idx_k[:, None]) < sym_cand
             met_work = torch.where(suppress, -1.0, met_work)
+        if stage == "sync":
+            return cands, cfo_c, metrics[0]
 
         # 2) delay and coarse CFO on the TS baseband decimated to mf_d interp
         # samples
@@ -1006,20 +1029,31 @@ class RxChain(nn.Module):
         max_delay = n - g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
         rescue = None
         if self.deep_coherent:
-            delay, coarse_cfo, delay2, cfo2, have2 = self._coherent_acquire(
-                bb_ts, mf_d, ts_dec)
+            acq = self._coherent_acquire(bb_ts, mf_d, ts_dec, sync_limit,
+                                         stage)
+            if stage == "arb":
+                return acq
+            delay, coarse_cfo, delay2, cfo2, have2 = acq
             rescue = (torch.clamp(delay2 - 8, 0, max_delay), cfo2, have2)
         else:
-            delay, coarse_cfo = self._refine_arbitrate(bb_ts, cands, cfo_c,
-                                                       mf_d, ts_dec)
+            acq = self._refine_arbitrate(bb_ts, cands, cfo_c, mf_d, ts_dec,
+                                         sync_limit, stage)
+            if stage == "arb":
+                return acq
+            delay, coarse_cfo = acq
         delay = torch.clamp(delay - 8, 0, max_delay)
         return delay, coarse_cfo, metrics[0], rescue
 
     def _refine_arbitrate(self, bb_ts: torch.Tensor, cands, cfo_c,
-                          mf_d: int, ts_dec: int):
+                          mf_d: int, ts_dec: int,
+                          sync_limit: int | None = None,
+                          stage: str = "full"):
         """Matched-filter arbitration over (SC candidate x CFO alias) and, with
-        deep sync, the noncoherent whole-buffer scan -> (delay [B], coarse
-        CFO [B])."""
+        deep sync, the noncoherent whole-buffer scan (its rows join the
+        arbitration; with "c2f" its best rows join the candidates instead)
+        -> (delay [B], coarse CFO [B]); hypotheses at or past sync_limit
+        (interp samples) are out. stage "arb": the (delays, scores, CFOs)
+        stacks [rows, B] before the pick."""
         g = self.geom
         b, n_ts = bb_ts.shape
         dev = bb_ts.device
@@ -1030,9 +1064,37 @@ class RxChain(nn.Module):
         win_d = window // mf_d
         seg_d_len = 2 * win_d + lp * s_d
         max_start = (n_ts * ts_dec - seg_d_len * mf_d) // mf_d * mf_d
+        c2f = self.deep_sync and self.deep_profile == "c2f"
+        if self.deep_sync:
+            # whole-buffer known-preamble scan over a static CFO grid
+            grid_hz = (DEEP_FULL_GRID_HZ if self.deep_profile == "full"
+                       else DEEP_GRID_HZ)
+            span = 120.0 if self.cfo_range == "wide" else 30.0
+            n_h = int(round(span / grid_hz))
+            grid_f = np.arange(-n_h, n_h + 1) * grid_hz
+            grid_t = torch.as_tensor(grid_f, dtype=self.real_dtype,
+                                     device=dev)
+            bank_g = self._rotated_bank(tmpl_d, grid_f, mf_d)
+            win_g = (n_ts // mf_s - lp * s_d) // 2
+            seg_g = bb_ts[:, : (2 * win_g + lp * s_d) * mf_s: mf_s]
+            delay_g, score_g = sync.matched_filter_refine_bank(
+                seg_g, torch.zeros(b, dtype=torch.int64, device=dev), bank_g,
+                win_g)
+            if c2f:
+                # the scan's best rows (lax.top_k's order: ties keep the
+                # lower row) are refined with the Schmidl-Cox candidates
+                top = torch.sort(score_g, dim=-1, descending=True,
+                                 stable=True)[1][:, :C2F_TOPN]
+                d_top = torch.gather(delay_g, 1, top) * mf_d
+                cands = list(cands) + list(d_top.T)
+                cfo_c = list(cfo_c) + list(grid_t[top].T)
         alias = g.fs / ((g.nfft // 2) * g.interp)
         alias_offsets = ((0.0, alias, -alias) if self.cfo_range == "wide"
                          else (0.0,))
+        if c2f:
+            # +-grid/2 bank offsets: the refined hypotheses as dense as the
+            # 15 Hz grid
+            alias_offsets += (DEEP_GRID_HZ / 2, -DEEP_GRID_HZ / 2)
         tmpl_bank = self._rotated_bank(tmpl_d, alias_offsets, mf_d)
         lag = torch.arange(seg_d_len, device=dev)
         seg_rows, start_rows, cfo_rows = [], [], []
@@ -1044,8 +1106,8 @@ class RxChain(nn.Module):
             st_ts = torch.clamp(seg_start // ts_dec, 0,
                                 n_ts - seg_d_len * mf_s)
             seg_d = torch.gather(bb_ts, 1, st_ts[:, None] + lag[None] * mf_s)
-            t_seg = (seg_start[:, None].to(torch.float32)
-                     + lag.to(torch.float32) * mf_d)
+            t_seg = (seg_start[:, None].to(self.real_dtype)
+                     + lag.to(self.real_dtype) * mf_d)
             rot = _cis((2 * np.pi / g.fs) * cfo_k[:, None] * t_seg)
             seg_rows.append(seg_d * rot)
             start_rows.append(seg_start // mf_d)
@@ -1059,37 +1121,33 @@ class RxChain(nn.Module):
         scores = score_f.reshape(n_c, b, n_a).transpose(1, 2).reshape(
             n_c * n_a, b)
         cfos = torch.cat(cfo_rows)
-        if self.deep_sync:
-            # whole-buffer known-preamble scan over a static CFO grid; its
-            # hypotheses join the arbitration
-            span = 120.0 if self.cfo_range == "wide" else 30.0
-            n_h = int(round(span / DEEP_GRID_HZ))
-            grid_f = np.arange(-n_h, n_h + 1) * DEEP_GRID_HZ
-            bank_g = self._rotated_bank(tmpl_d, grid_f, mf_d)
-            win_g = (n_ts // mf_s - lp * s_d) // 2
-            seg_g = bb_ts[:, : (2 * win_g + lp * s_d) * mf_s: mf_s]
-            delay_g, score_g = sync.matched_filter_refine_bank(
-                seg_g, torch.zeros(b, dtype=torch.int64, device=dev), bank_g,
-                win_g)
+        if self.deep_sync and not c2f:
             delays = torch.cat([delays, delay_g.T * mf_d])
             scores = torch.cat([scores, score_g.T])
-            cfos = torch.cat([cfos, torch.as_tensor(
-                grid_f, dtype=torch.float32, device=dev)[:, None].expand(-1, b)])
+            cfos = torch.cat([cfos, grid_t[:, None].expand(-1, b)])
+        if sync_limit is not None:
+            # a boundary frame's GI plateau can put a candidate just under
+            # the limit that then refines past it
+            scores = torch.where(delays >= sync_limit, -math.inf, scores)
+        if stage == "arb":
+            return delays, scores, cfos
         pick = torch.argmax(scores, dim=0)[None]
         delay = torch.gather(delays, 0, pick)[0]
         coarse_cfo = torch.gather(cfos, 0, pick)[0]
         return delay, coarse_cfo
 
     def _decode_from(self, pb: torch.Tensor, delay: torch.Tensor,
-                     coarse_cfo: torch.Tensor, metric: torch.Tensor):
+                     coarse_cfo: torch.Tensor, metric: torch.Tensor,
+                     stage: str = "full"):
         """Decode at one (start, coarse CFO) hypothesis per row: data FIR,
         Moose, CFO-hypothesis pick, equalize, demap, LDPC (with BICM-ID and
-        the DD passes when on), CRC, SNR."""
+        the DD passes when on), CRC, SNR. stage "hyp" stops after the CFO
+        pick: (equalized flat grid, variance, freq)."""
         g = self.geom
         b = pb.shape[0]
         dec0 = self.extract_frame_decimated_pb(pb, delay, g.nsymb)
-        t_dec = (delay[:, None].to(torch.float32)
-                 + torch.arange(dec0.shape[-1], dtype=torch.float32,
+        t_dec = (delay[:, None].to(self.real_dtype)
+                 + torch.arange(dec0.shape[-1], dtype=self.real_dtype,
                                 device=pb.device) * g.interp)
         w = 2 * np.pi / g.fs
 
@@ -1100,7 +1158,9 @@ class RxChain(nn.Module):
         freq_m = coarse_cfo + resid
         freq_m = torch.where(torch.abs(freq_m) > 0.1, freq_m, 0.0)
         # CFO hypotheses (Moose is unambiguous within +-half a subcarrier)
-        subc = float(np.float32(g.bandwidth / g.nc))
+        subc = g.bandwidth / g.nc
+        if self.real_dtype == torch.float32:
+            subc = float(np.float32(subc))
         hyps = [freq_m, torch.zeros_like(freq_m)]
         if self.cfo_range == "wide":
             hyps += [freq_m + subc, freq_m - subc]
@@ -1112,6 +1172,8 @@ class RxChain(nn.Module):
             freq = self._pilot_pick(hyps, rotate)
             eq, variance, mean_h, var_full, flat, slope = \
                 self._grid_stats_internal(self.demod_grid(rotate(freq)))
+        if stage == "hyp":
+            return eq, variance, freq
         # the JAX receive applies no LLR calibration scale here
         llr, data = self._demap(eq, variance, None)
         payload, crc_ok, iters, real_bits, data, variance, var_full, mean_h = \
@@ -1180,8 +1242,8 @@ class RxChain(nn.Module):
         llr = torch.nn.functional.pad(llr, (0, g.n_bits - self.active_nbits))
         b = grid.shape[0]
         return (llr[:, self._bit_iperm],
-                torch.zeros(b, dtype=torch.float32, device=grid.device),
-                torch.ones(b, dtype=torch.float32, device=grid.device))
+                torch.zeros(b, dtype=self.real_dtype, device=grid.device),
+                torch.ones(b, dtype=self.real_dtype, device=grid.device))
 
     def _decode_mfsk_at(self, pb: torch.Tensor, delay: torch.Tensor,
                         freq: torch.Tensor | None = None):
@@ -1196,9 +1258,9 @@ class RxChain(nn.Module):
 
     def _as_buffer(self, pb_buffer) -> torch.Tensor:
         """A capture buffer (any real dtype, any device) as a contiguous
-        float32 tensor on the chain's device."""
+        tensor of the chain's real type on the chain's device."""
         return torch.as_tensor(pb_buffer).to(device=self.device,
-                                             dtype=torch.float32).contiguous()
+                                             dtype=self.real_dtype).contiguous()
 
     @torch.no_grad()
     def decode_at(self, pb_buffer, delay, freq_offset):
@@ -1215,7 +1277,7 @@ class RxChain(nn.Module):
         b = pb.shape[0]
         delay = torch.as_tensor(delay, device=self.device).long().reshape(b)
         freq = self._row_freq(freq_offset, b)
-        with _full_fp32_matmul():
+        with ops.full_fp32_matmul():
             if g.spec.is_mfsk:
                 return self._decode_mfsk_at(pb, delay, freq)
             frame = self.extract_frame_decimated_pb(pb, delay,
@@ -1254,9 +1316,11 @@ class RxChain(nn.Module):
                                                   self._mf_templates, window)
         return (*self.decode_at(pb, d - 8, freq), d.to(torch.int32), score)
 
-    def _receive_mfsk(self, pb: torch.Tensor) -> RxResult:
+    def _receive_mfsk(self, pb: torch.Tensor,
+                      sync_limit: int | None = None) -> RxResult:
         """MFSK receive: the time-sync FIR, the preamble tone metric at
-        every symbol-aligned start, the frame decoded at the best start
+        every symbol-aligned start (those at or past sync_limit interp
+        samples masked out), the frame decoded at the best start
         (delay = symbol * Nofdm * interp); with mfsk_sync_cands > 1 the rows
         that fail their CRC are decoded again at the runner-up start
         (outside +-1 symbol of the best), and a row takes that result where
@@ -1267,15 +1331,17 @@ class RxChain(nn.Module):
         bb_ts = kernels.mix_fir_decimate(pb, self._osc_const(n), self._fir_ts,
                                          g.interp)
         met = sync.mfsk_sync_metric(bb_ts, g, decim=g.interp)
+        pos = torch.arange(met.shape[-1], device=pb.device)
+        if sync_limit is not None:
+            met = torch.where(pos[None] * sym_len >= sync_limit, -1.0, met)
         sym_idx = torch.argmax(met, dim=-1)
         delay = sym_idx * sym_len
         metric = torch.gather(met, 1, sym_idx[:, None])[:, 0]
         payload, crc_ok, iters, snr, mean_h = self._decode_mfsk_at(pb, delay)
-        freq = torch.zeros(b, dtype=torch.float32, device=pb.device)
+        freq = torch.zeros(b, dtype=self.real_dtype, device=pb.device)
         state = (payload, crc_ok, delay.to(torch.int32), iters, snr, mean_h,
                  metric)
         if self.mfsk_sync_cands > 1:
-            pos = torch.arange(met.shape[-1], device=pb.device)
             sup = torch.abs(pos[None] - sym_idx[:, None]) <= 1
             sym2 = torch.argmax(torch.where(sup, -1.0, met), dim=-1)
 
@@ -1296,9 +1362,20 @@ class RxChain(nn.Module):
                         mean_h)
 
     @torch.no_grad()
-    def receive(self, pb_buffer) -> RxResult:
-        """Full RX: sync + CFO + decode. pb_buffer: [B, buffer_samples]
-        (any real dtype; moved to the chain's device as float32).
+    def receive(self, pb_buffer, sync_limit: int | None = None,
+                stage: str = "full"):
+        """Full RX: sync + CFO + decode -> RxResult. pb_buffer: [B, n], the
+        standard buffer or longer (any real dtype; moved to the chain's
+        device in its real type).
+
+        sync_limit (interp samples): only frame starts below it are
+        eligible, as scale.shard's time-sharded receive asks. stage (OFDM;
+        an MFSK mode runs the whole receive) stops early and returns the
+        JAX receive_fn's tuple: "sync" the Schmidl-Cox candidates (starts
+        and CFOs, lists of [B], metric [B]), "arb" the arbitration stacks
+        (delays, scores, CFOs; the coherent nominees [M, B] on CONFIG_0),
+        "refine" (delay, coarse CFO, metric) and "hyp" (equalized grid,
+        variance, freq) of the first decode.
 
         On the coherent deep-acquisition path (CONFIG_0), when a row fails
         its CRC the whole batch is decoded once more at the runner-up
@@ -1309,13 +1386,20 @@ class RxChain(nn.Module):
         (_receive_mfsk); which rows failed is likewise read on the host.
         The JAX chain decodes the whole batch again instead; a row's result
         depends on no other row, so the outputs are the same."""
+        if stage not in STAGES:
+            raise ValueError(f"stage must be one of {STAGES}")
         pb = self._as_buffer(pb_buffer)
-        with _full_fp32_matmul():
+        with ops.full_fp32_matmul():
             if self.geom.spec.is_mfsk:
-                return self._receive_mfsk(pb)
-            delay, coarse_cfo, metric, rescue = self._acquire(pb)
-            out = self._decode_from(pb, delay, coarse_cfo, metric)
-            if rescue is None or bool(out.crc_ok.all()):
+                return self._receive_mfsk(pb, sync_limit)
+            acq = self._acquire(pb, sync_limit, stage)
+            if stage in ("sync", "arb"):
+                return acq
+            delay, coarse_cfo, metric, rescue = acq
+            if stage == "refine":
+                return delay, coarse_cfo, metric
+            out = self._decode_from(pb, delay, coarse_cfo, metric, stage)
+            if stage == "hyp" or rescue is None or bool(out.crc_ok.all()):
                 return out
             delay2, cfo2, have2 = rescue
             out2 = self._decode_from(pb, delay2, cfo2, metric)

@@ -1,7 +1,9 @@
 """Synchronization: Schmidl-Cox time sync, known-preamble matched filter,
 the coherent whole-buffer scan and pilot-lattice arbitration of the deep
-acquisition, Moose fine CFO, and the MFSK preamble and ACK/BREAK pattern
-metrics (PyTorch port of the JAX package's `modem/sync.py`).
+acquisition, Moose fine CFO, the MFSK preamble and ACK/BREAK pattern
+metrics, and the coherent preamble re-score and the legacy guard-interval
+metrics that no receive path calls (PyTorch port of the JAX package's
+`modem/sync.py`).
 
 The Schmidl-Cox window sums are prefix-sum differences (cumsum, then
 difference, as the JAX package computes them off the TPU); the
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from mercury_tpu_torch.core.geometry import MfskParams, ModeGeometry
-from mercury_tpu_torch.dsp import kernels
+from mercury_tpu_torch.dsp import kernels, ops
 
 
 def _comb(prefix: torch.Tensor, n_sections: int, stride: int,
@@ -120,6 +122,35 @@ def coherent_scan_max(seg: torch.Tensor, bank: torch.Tensor, window: int
     return kernels.deep_mf_max(seg, bank, window)
 
 
+def coherent_preamble_rescore(bb_ts: torch.Tensor, cand_delay: torch.Tensor,
+                              bank: torch.Tensor, mf_s: int,
+                              ts_dec: int) -> torch.Tensor:
+    """Fully coherent preamble scores of candidate frame starts (no receive
+    path calls it): bb_ts [B, n_ts] base-rate TS baseband (interp rate /
+    ts_dec), cand_delay [B, N] interp-rate starts (multiples of mf_d =
+    mf_s*ts_dec), bank [F, Lp, S_d] the preamble symbols at mf_d rotated
+    in absolute time by each grid CFO -> score [B, N, F], |sum over the
+    preamble of segment x conj(template)| over sqrt(segment energy x
+    template energy). The correlation is one float32 matmul at full
+    precision (TF32 off), as JAX's Precision.HIGHEST."""
+    f_n, lp, s_d = bank.shape
+    b, n = cand_delay.shape
+    bb_dec = bb_ts[:, ::mf_s]
+    span = lp * s_d
+    idx0 = torch.clamp(torch.div(cand_delay, ts_dec * mf_s,
+                                 rounding_mode="floor"),
+                       0, max(bb_dec.shape[-1] - span, 0))
+    idx = idx0[..., None] + torch.arange(span, device=bb_ts.device)
+    seg = torch.gather(bb_dec, 1, idx.reshape(b, -1)).reshape(b, n, span)
+    bk = torch.conj(bank).reshape(f_n, span).to(seg.dtype)
+    with ops.full_fp32_matmul():
+        c = seg @ bk.T                                       # [B, N, F]
+    e = torch.sum(seg.real ** 2 + seg.imag ** 2, dim=-1)
+    t2 = float(torch.sum(torch.abs(bank[0]) ** 2))          # rotation-free
+    return torch.abs(c) / torch.sqrt(torch.clamp(e[..., None] * t2,
+                                                 min=1e-30))
+
+
 def pilot_rescore(bb_ts: torch.Tensor, cand_delay: torch.Tensor,
                   cand_fidx: torch.Tensor, bank: torch.Tensor, mf_s: int,
                   ts_dec: int, pre_span: int,
@@ -190,6 +221,57 @@ def matched_filter_refine_seg(seg: torch.Tensor, start: torch.Tensor,
     delay, score = matched_filter_refine_bank(seg, start, templates[None],
                                               window)
     return delay[:, 0], score[:, 0]
+
+
+def gi_time_sync_metric(bb: torch.Tensor, geom: ModeGeometry,
+                        decim: int = 1,
+                        ts_nsymb: int | None = None) -> torch.Tensor:
+    """Legacy guard-interval time sync (reference cl_ofdm::time_sync,
+    ofdm.cc:1659-1733; no receive path calls it): for every candidate
+    offset, Re(GI x conj(its cyclic copy Nfft later)) summed over the
+    first ts_nsymb symbols (default Nsymb), normalized by the windows'
+    energies, as prefix-sum differences. bb [B, n] at interp rate / decim
+    -> metric [B, n_cand]; candidate i is interp-rate offset i*decim."""
+    r = geom.interp // decim
+    if r * decim != geom.interp:
+        raise ValueError("decim must divide the interpolation rate")
+    nfft_r, ngi_r = geom.nfft * r, geom.ngi * r
+    s = nfft_r + ngi_r
+    lp = ts_nsymb if ts_nsymb is not None else geom.nsymb
+    n = bb.shape[-1]
+    n_cand = max(n - nfft_r - (lp - 1) * s - ngi_r, 1)
+    p = torch.real(bb[..., :-nfft_r] * torch.conj(bb[..., nfft_r:]))
+    e = bb.real ** 2 + bb.imag ** 2
+    zero = torch.zeros_like(p[..., :1])
+    cp = torch.cat([zero, torch.cumsum(p, dim=-1)], dim=-1)
+    ce = torch.cat([zero, torch.cumsum(e, dim=-1)], dim=-1)
+    c = _comb(cp, lp, s, n_cand + ngi_r)
+    ca = _comb(ce, lp, s, n_cand + ngi_r)
+    cb = _comb(ce[..., nfft_r:], lp, s, n_cand + ngi_r)
+    corr = c[..., ngi_r:] - c[..., :n_cand]
+    norm_a = ca[..., ngi_r:] - ca[..., :n_cand]
+    norm_b = cb[..., ngi_r:] - cb[..., :n_cand]
+    return corr / torch.sqrt(torch.clamp(norm_a * norm_b, min=1e-30))
+
+
+def gi_symbol_sync_metric(frame_bb: torch.Tensor,
+                          geom: ModeGeometry) -> torch.Tensor:
+    """Legacy per-symbol sync quality (reference cl_ofdm::symbol_sync,
+    ofdm.cc:2188-2266; no receive path calls it): for each symbol of a
+    frame-aligned baseband [B, n], |Re(sum a x conj(b))| / sqrt(|a|^2 |b|^2)
+    of the half-symbol windows a at the symbol start and b Nfft/2 later
+    -> [B, Nsymb]."""
+    nofdm, half = geom.nofdm, geom.nfft // 2
+    nsymb = frame_bb.shape[-1] // nofdm
+    sym = frame_bb[..., : nsymb * nofdm].reshape(*frame_bb.shape[:-1],
+                                                 nsymb, nofdm)
+    a = sym[..., :half]
+    b = sym[..., half: 2 * half]
+    corr = torch.sum(torch.real(a * torch.conj(b)), dim=-1)
+    norm_a = torch.sum(torch.abs(a) ** 2, dim=-1)
+    norm_b = torch.sum(torch.abs(b) ** 2, dim=-1)
+    return torch.abs(corr) / torch.sqrt(torch.clamp(norm_a * norm_b,
+                                                    min=1e-30))
 
 
 def moose_cfo(frame_decim: torch.Tensor, geom: ModeGeometry,

@@ -13,7 +13,8 @@ matched-filter kernels multiply in TF32 on the tensor cores; the plain
 versions are float32 FFTs. A CONFIG_16 receive on the card equals the
 CPU's in crc_ok, delay and decoded payloads, iters within one sweep. The
 device pools (4 channels of CONFIG_16) and a two-node link session decode
-every frame with their windows and chains on the card."""
+every frame with their windows and chains on the card. A 2-shard virtual
+mesh on the card decodes as the unsharded receive."""
 
 import numpy as np
 import pytest
@@ -559,3 +560,47 @@ def test_link_session_on_card(cuda_device):
     link.run(max_sim_s=1800, until=lambda: len(rsp.fifo_rx) >= len(payload))
     assert rsp.received() == payload
     assert cmd.current_configuration == rsp.current_configuration
+
+
+@pytest.mark.cuda
+def test_virtual_mesh_on_card(cuda_device):
+    """Two shards on one card (a virtual mesh), 4 channels of CONFIG_16:
+    the channel-parallel receive equals the unsharded one in its decisions,
+    with each shard's chain and stream on the card and no transfer between
+    shards; the time-sharded receive of a 2-slice stream claims its two
+    frames, one of them completed from the halo copied on the card."""
+    from mercury_tpu_torch.scale import shard
+
+    g = build_geometry(16)
+    rx = RxChain(g, device=cuda_device)
+    mesh = shard.make_mesh(2, devices=[cuda_device] * 2)
+    rng = np.random.default_rng(2)
+    payload = rng.integers(0, 256, (4, g.frame_bytes)).astype(np.uint8)
+    frames = TxChain(g, device=cuda_device).transmit(
+        torch.as_tensor(payload, device=cuda_device))
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    buf = torch.as_tensor(rng.standard_normal((4, n)).astype(np.float32),
+                          device=cuda_device) * sim.sigma_for_esn0(31.0)
+    buf[:, 4000: 4000 + frames.shape[1]] += frames
+    run = shard.channel_parallel_receive(rx, mesh)
+    res, ref = run(buf), rx.receive(buf)
+    assert all(sh.rx.device.type == "cuda" and sh.stream is not None
+               for sh in run.shards)
+    for f in ("payload", "crc_ok", "delay", "iters"):
+        assert torch.equal(getattr(res, f), getattr(ref, f)), f
+    assert res.crc_ok.all() and run.log == []
+
+    stream = 0.002 * torch.as_tensor(
+        rng.standard_normal((1, 2 * n)).astype(np.float32),
+        device=cuda_device)
+    starts = (n - frames.shape[1] // 2, n + 12000)     # slice 0's straddles
+    for k, st in enumerate(starts):
+        stream[0, st: st + frames.shape[1]] += frames[k]
+    ts = shard.time_sharded_receive(rx, shard.make_mesh(
+        2, axis="t", devices=[cuda_device] * 2))
+    out = ts(stream)
+    assert out.crc_ok[:, 0].all()
+    for k, st in enumerate(starts):
+        assert abs(int(out.delay[k, 0]) - st) <= 16
+        assert bytes(out.payload[k, 0].cpu().numpy()) == bytes(payload[k])
+    assert [e["kind"] for e in ts.log if "bytes" in e] == ["halo", "dedupe"]

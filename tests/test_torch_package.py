@@ -19,7 +19,7 @@ from mercury_tpu_torch.link.node import ArqNode
 from mercury_tpu_torch.link.tcp_api import ArqTcpServer
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.tx import TxChain
-from mercury_tpu_torch.scale import serve
+from mercury_tpu_torch.scale import serve, shard
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 MODULES = sorted(
@@ -86,10 +86,12 @@ def test_imports_and_receives_without_jax():
     lambda g: ArqNode("N0CALL", P.RESPONDER),
     lambda g: ArqTcpServer(base_port=17702),
     lambda g: serve.StreamPool(g, 2), lambda g: serve.DeviceStreamPool(g, 2),
-    lambda g: serve.FusedDevicePool(g, 2)],
+    lambda g: serve.FusedDevicePool(g, 2), lambda g: shard.make_mesh(),
+    lambda g: shard.channel_parallel_receive(RxChain(g, device="cpu"),
+                                             shard.make_mesh(2))],
     ids=["RxChain", "TxChain", "rx_state_from_numpy", "resolve_device",
          "ArqNode", "ArqTcpServer", "StreamPool", "DeviceStreamPool",
-         "FusedDevicePool"])
+         "FusedDevicePool", "make_mesh", "channel_parallel_receive"])
 def test_no_device_without_gpu_raises(make):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is the card")

@@ -35,7 +35,7 @@ from mercury_tpu.modem.rx import RxChain as JaxRx
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.convert import RX_BUFFERS, rx_state_from_numpy
 from mercury_tpu_torch.core.geometry import build_geometry as port_geometry
-from mercury_tpu_torch.modem import rx as rx_mod
+from mercury_tpu_torch.dsp import ops
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.tx import TxChain
 
@@ -234,17 +234,17 @@ def test_mix_and_grid_stats_match_jax(chains):
                                    rtol=1e-4)
 
 
-# the cases that named items 9, 10 and 13 now construct: their options are
-# held against the JAX chain's by test_torch_dd.py::test_option_policy_* and
-# test_narrow_receive_matches_jax
-@pytest.mark.parametrize("cfg,kwargs,item", [
-    (0, {"deep_profile": "full"}, "item 8a"),   # round-3 deep scan
-    (3, {"deep_profile": "c2f"}, "item 8a"),
+# every option of the JAX chain constructs (deep_profile "full" and "c2f"
+# are held against the JAX chain in test_torch_rx_options.py); what still
+# raises: float64 on a card, whose kernels are float32, and an unknown
+# deep profile
+@pytest.mark.parametrize("cfg,kwargs,match", [
+    (0, {"real_dtype": torch.float64, "device": "cuda"}, "float32"),
+    (3, {"deep_profile": "coarse", "device": "cpu"}, "deep_profile"),
 ])
-def test_out_of_slice_options_raise(cfg, kwargs, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md §1, {item}\\)"):
-        RxChain(port_geometry(cfg), device="cpu", **kwargs)
+def test_out_of_slice_options_raise(cfg, kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        RxChain(port_geometry(cfg), **kwargs)
 
 
 @pytest.mark.parametrize("ldpc_algo", ["spa", "minsum", "layered",
@@ -293,14 +293,14 @@ def test_matmul_precision_survives_two_threads():
     seen = {}
 
     def thread_a():
-        with rx_mod._full_fp32_matmul():
+        with ops.full_fp32_matmul():
             a_in.set()
             b_in.wait(10)
         a_out.set()
 
     def thread_b():
         a_in.wait(10)
-        with rx_mod._full_fp32_matmul():
+        with ops.full_fp32_matmul():
             b_in.set()
             a_out.wait(10)
             seen["inside_b"] = torch.get_float32_matmul_precision()
