@@ -65,14 +65,23 @@ build/mercury_tpu_torch/), then:
      decodes' kernels, a same-card copy rate into
      analysis.predicted_efficiency); a 2 x 2 (dcn, t) mesh; time_sharded_fir
      against the unsharded FIR; deep_profile "c2f" and "full" at CONFIG_3;
-     the legacy GI metrics and coherent_preamble_rescore against the CPU;
+     the legacy GI metrics and coherent_preamble_rescore against the CPU.
+     Then the measuring entry points as a user runs them: `python -m
+     mercury_tpu_torch -m BENCH` in-process (its JSON line printed, every
+     warm-up row decoded; then its receive timed between synchronizes and
+     profiled), tools.throughput_table in --quick form over
+     all 20 modes and CONFIG_0 with deep sync off (every row decoded),
+     tools.serve_bench's fused and device pools at 256 channels (every
+     channel decoded every round) and one adaptive tools.link_benchmark
+     session (CONFIG_0, 20 dB, 2000 bytes intact);
   3. decodes the reference's CONFIG_0, 3 and 9 capture buffers, those of
      CONFIG_10-16 and 100-102 at both pilot densities, and CONFIG_15/16's
      with the zero-forcing estimator (tests/golden), to their reference
      bytes;
   4. holds each kernel shape that the paths of 2 and 3 launched and
      phase 1 did not hold against its plain version, on the operands of
-     its first call there (ShapeLog, hold_path_shapes).
+     its first call there (ShapeLog, hold_path_shapes), mix_fir_decimate's
+     strided "same" form also against the cuDNN yardstick.
 Any failure raises (non-zero exit). Without a CUDA device it exits non-zero
 before printing a result. The line before the last lists the kernels
 (launches on the main paths, error, times, bound, library time); the last
@@ -80,7 +89,9 @@ line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import inspect
+import io
 import json
 import pathlib
 import re
@@ -92,9 +103,11 @@ import time
 import numpy as np
 import torch
 
+from mercury_tpu_torch import __main__ as cli
+from mercury_tpu_torch import bench, native, obs
+from mercury_tpu_torch.bench import make_buffer
 from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.core.modes import HIGH_DENSITY, LOW_DENSITY
-from mercury_tpu_torch import native, obs
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.channel.ber import BerHarness
 from mercury_tpu_torch.dsp import kernels, ops
@@ -109,6 +122,8 @@ from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.stream import StreamReceiver
 from mercury_tpu_torch.modem.tx import TxChain
 from mercury_tpu_torch.scale import analysis, serve, shard
+from mercury_tpu_torch.tools import link_benchmark, serve_bench
+from mercury_tpu_torch.tools import throughput_table
 
 BATCH = 256
 # Es/N0 (dB) of each main path: 12 dB up to QPSK, then tests/test_rx.py:64's
@@ -380,6 +395,7 @@ def hold_path_shapes(log: ShapeLog) -> dict:
         a = entry["args"]
         wrapper, plain = log.wrappers[name], getattr(kernels, f"{name}_ref")
         pa = {k: v for k, v in a.items() if k != "prepared"}
+        lib_ms = None
         if name == "mix_fir_decimate":
             got, want = wrapper(**a), plain(**pa)
             err = (got - want).abs().max().item()
@@ -392,6 +408,11 @@ def hold_path_shapes(log: ShapeLog) -> dict:
                            a["freq"] is not None)
             raw = fir_raw(**a)
             text = f"within {limit:.3e}"
+            library = fir_path_library(a, limit, got)
+            if library is not None:
+                lib_ms = cuda_ms(library, 5)
+                text += (f"; library (cuDNN conv1d + rotation) {lib_ms:.4f} "
+                         f"ms, agrees within {limit:.3e}")
         elif name == "pilot_cand_score":
             got, want = wrapper(**a), plain(**pa)
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
@@ -426,7 +447,8 @@ def hold_path_shapes(log: ShapeLog) -> dict:
         st = {"launches": log.launches[name, key], "path": entry["path"],
               "max_abs_err": err, "ms": cuda_ms(lambda: wrapper(**a), 5),
               "kernel_ms": raw_ms(raw, 5),
-              "plain_ms": cuda_ms(lambda: plain(**pa), 5), **bd}
+              "plain_ms": cuda_ms(lambda: plain(**pa), 5),
+              "library_ms": lib_ms, **bd}
         out[f"{name} {key}"] = st
         print(f"path shape {name} {list(key)} (first launched by "
               f"{entry['path']}; {st['launches']} launches on the "
@@ -493,6 +515,27 @@ def fir_library(pb, _osc, taps, stride, g):
                                        padding=ntaps - 1 - c)
         return torch.complex(y[:, 0], y[:, 1]) * rot
     return run
+
+
+def fir_path_library(a: dict, limit: float, got: torch.Tensor):
+    """fir_library for a path's mix_fir_decimate call (its wrapper's
+    arguments a) in the strided "same" form, every row from 0 without
+    per-row offsets, whose oscillator is the standard carrier's table (no
+    chain here has a carrier offset): held to agree with the kernel's
+    output got within limit. None for the other forms: no library call
+    takes per-row starts or offsets."""
+    if a["start"] is not None or a["freq"] is not None:
+        return None
+    pb, osc = a["pb"], a["osc"]
+    n = pb.shape[1]
+    g = build_geometry(9, with_pre_eq=False)
+    if osc.shape[0] != n or not torch.equal(
+            osc, ops.mixer_table(n, g.fc, g.fs, osc.device)):
+        return None
+    library = fir_library(pb, osc, a["taps"], a["stride"], g)
+    err = (library() - got).abs().max().item()
+    assert err <= limit, f"conv1d yardstick differs by {err} at {pb.shape}"
+    return library
 
 
 def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
@@ -836,32 +879,6 @@ def check_pilot_cand_score(rx: RxChain, gen: torch.Generator,
           f"referenced; templates read per (row, candidate): "
           f"{8 * batch * m * span / 1e6:.1f} MB); library: none")
     return out
-
-
-def make_buffer(g, dev: torch.device, esn0: float, seed: int,
-                ctrl: bool = False, fading: dict | None = None):
-    """BATCH frames of random payloads in white noise at Es/N0 esn0, at the
-    bench.py delay; an MFSK mode's at a symbol-aligned delay, esn0 then the
-    channel SNR (sim.sigma_for_channel_snr). fading: Watterson parameters
-    applied to the frames before the noise (host numpy, seed 42)."""
-    tx = TxChain(g, device=dev, ctrl=ctrl)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    payload = torch.randint(0, 256, (BATCH, g.frame_bytes), generator=gen,
-                            device=dev, dtype=torch.uint8)
-    buf_len = g.nofdm * g.buffer_nsymb * g.interp
-    frames = tx.transmit(payload)
-    if g.spec.is_mfsk:
-        delay = (g.preamble_nsymb + 2) * g.nofdm * g.interp
-        sigma = sim.sigma_for_channel_snr(frames[0], esn0, g.fs, g.bandwidth)
-    else:
-        delay = ((g.preamble_nsymb + 2) * g.nofdm + 50) * g.interp
-        sigma = sim.sigma_for_esn0(esn0)
-    if fading is not None:
-        frames = torch.as_tensor(sim.watterson(frames, fs=g.fs, seed=42,
-                                               **fading),
-                                 dtype=torch.float32, device=dev)
-    buf = sim.awgn_passband(frames, sigma, delay, buf_len, gen)
-    return buf, payload, delay
 
 
 def drive_main_path(cfg: int, dev: torch.device, ctrl: bool = False) -> dict:
@@ -2209,6 +2226,102 @@ def drive_legacy(dev: torch.device) -> None:
     assert (score[:, 1].argmax(-1) == len(grid) // 2).all(), score[:, 1]
 
 
+def bench_latency(dev: torch.device) -> None:
+    """BENCH's receive on its buffer three ways: 10 receives each between
+    two synchronizes (latency, as the main paths time a receive), BENCH's
+    chained rate (bench.receive_rate: no synchronize between receives)
+    as ms a receive, and one receive under the profiler (device busy, from
+    the table's "Self CUDA time total", against the median latency: the
+    idle share)."""
+    g = build_geometry(bench.CFG)
+    rx = RxChain(g, device=dev)
+    buf, _, _ = bench.bench_buffer(g, dev)
+    rx.receive(buf)
+    lat = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rx.receive(buf + (i + 1) * 1e-7)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    chained = BATCH * buf.shape[1] / bench.receive_rate(rx, buf,
+                                                        bench.REPS) * 1e3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rx.receive(buf)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=3)
+    m = re.search(r"Self CUDA time total: ([\d.]+)(s|ms|us)", table)
+    assert m, f"the profiler saw no device time:\n{table}"
+    busy = float(m.group(1)) * {"s": 1e3, "ms": 1.0, "us": 1e-3}[m.group(2)]
+    med = sorted(lat)[len(lat) // 2]
+    print(f"BENCH's receive (CONFIG_9, batch {BATCH}, its buffer): each "
+          f"between two synchronizes {min(lat):.2f} / {med:.2f} / "
+          f"{max(lat):.2f} ms (min / median / max of 10); chained "
+          f"(receive_rate, {bench.REPS} and {2 * bench.REPS} receives "
+          f"differenced) {chained:.2f} ms a receive; one receive under the "
+          f"profiler: device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / med:.3f} of the median")
+
+
+def drive_bench_and_tools(dev: torch.device) -> dict:
+    """The port's measuring entry points on the card, each as its user
+    runs it: `python -m mercury_tpu_torch -m BENCH` in-process (its JSON
+    line printed; every warm-up row decoded, value > 0, no transfer in the
+    channel-parallel receive, the overlap scheduled), then its receive's
+    latency and idle share (bench_latency); the per-mode table
+    in --quick form (3 reps, no batch sweep): all 20 modes and CONFIG_0
+    with deep sync off at batch 256, every row decoded; serve_bench's fused
+    and device pools at 256 channels over 3 lockstep rounds, every channel
+    decoded every round, beside the receive alone at batch 256; one
+    adaptive link_benchmark session, CONFIG_0 at 20 dB, 2000 bytes, intact.
+    Every kernel must launch."""
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["-m", "BENCH"])
+    lines = out.getvalue().splitlines()
+    assert rc == 0 and len(lines) == 1, (rc, lines)
+    print(lines[0])
+    rec = json.loads(lines[0])
+    sc = rec["scaling"]
+    assert rec["warmup_decoded"] == BATCH and rec["value"] > 0, rec
+    assert rec["backend"] == "torch-cuda", rec
+    assert sc["channel_parallel_collective_bytes"] == 0, sc
+    assert sc["time_sharded_overlap_scheduled"], sc
+    t_bench = time.perf_counter() - t0
+    bench_latency(dev)
+
+    t0 = time.perf_counter()
+    table = throughput_table.table(dev, 3, sweep=False, log=print)
+    bad = [r["config"] for r in table["per_mode"] if r["crc_ok_frac"] != 1.0]
+    assert not bad, f"throughput_table: rows lost at configs {bad}"
+    print(throughput_table.markdown(table))
+    t_table = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rows = serve_bench.run(dev, [BATCH], 3, ["fused", "device"], print)
+    bad = [(r["pool"], r["decoded_per_fed_frame"]) for r in rows
+           if r["decoded_per_fed_frame"] != 1.0]
+    assert not bad, f"serve_bench: channels lost {bad}"
+    t_serve = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    link = link_benchmark.run_session(0, 20.0, 2000, True, False, seed=200,
+                                      device=dev)
+    assert link["intact"] and link["delivered"] == 2000, link
+    print(f"link_benchmark adaptive CONFIG_0 at 20 dB: {json.dumps(link)}")
+    launches = dict(kernels.LAUNCHES)
+    assert all(v > 0 for v in launches.values()), launches
+    print(f"bench and tools: BENCH {t_bench:.1f} s, throughput_table "
+          f"{t_table:.1f} s, serve_bench {t_serve:.1f} s, link_benchmark "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return {"launches": launches}
+
+
 def decode_golden(cfg: int, dev: torch.device, density: int = HIGH_DENSITY,
                   estimator: str = "auto") -> None:
     rx = RxChain(build_geometry(cfg, density, estimator=estimator),
@@ -2317,6 +2430,10 @@ def main() -> int:
     drive_legacy(dev)
     print(f"sharded receive, deep profile and legacy phases: "
           f"{time.perf_counter() - t_new:.1f} s")
+    # the measuring entry points: BENCH and the three tools
+    t_new = time.perf_counter()
+    run("bench and tools", drive_bench_and_tools, dev)
+    print(f"bench and tool phases: {time.perf_counter() - t_new:.1f} s")
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     log.path = "golden"
     for cfg in (0, 3, 9):

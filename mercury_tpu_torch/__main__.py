@@ -8,6 +8,7 @@ main.cc (the JAX package's `__main__.py`, on the port's chains).
     python -m mercury_tpu_torch -m RX_TEST -s 0 -i in.f32   # samples -> bytes
     python -m mercury_tpu_torch -m SIM                # two-node ARQ session
     python -m mercury_tpu_torch -m LIST --cpu         # mode table
+    python -m mercury_tpu_torch -m BENCH              # headline benchmark
 
 Reference CLI (main.cc:188-346): -m mode, -s config, -p tcp port, -g
 gearshift, -R robust. Audio-device flags are replaced by sample-file/UDP
@@ -32,7 +33,7 @@ def main(argv=None) -> int:
     ap.add_argument("-m", "--mode", default="LIST",
                     choices=["ARQ", "BER", "SWEEP", "TX_TEST", "RX_TEST",
                              "SIM", "LIST", "TX_SHM", "RX_SHM",
-                             "MONITOR"])
+                             "MONITOR", "BENCH"])
     ap.add_argument("--shm", default="/mercury-tpu-comm",
                     help="shared-memory ring name for TX_SHM/RX_SHM")
     ap.add_argument("-c", "--ini", default=None,
@@ -398,6 +399,10 @@ def main(argv=None) -> int:
             vis.snapshot(args.gui)
             print(f"monitor snapshot written to {args.gui}")
         return 0
+
+    if args.mode == "BENCH":
+        from mercury_tpu_torch import bench
+        return bench.main(["--cpu"] if args.cpu else [])
 
     return 1
 

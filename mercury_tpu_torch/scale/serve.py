@@ -82,10 +82,13 @@ def _host_fields(res: RxResult, r: int) -> list[np.ndarray]:
         host[:, fb + i].astype(dt) for i, dt in enumerate(_HOST_DTYPES[1:])]
 
 
-def _to_device(host: np.ndarray, device: torch.device,
-               stream=None) -> torch.Tensor:
+def _to_device(host, device: torch.device, stream=None) -> torch.Tensor:
     """float32 host array -> device tensor: on the card, staged in pinned
-    memory and copied with non_blocking=True (on `stream` if given)."""
+    memory and copied with non_blocking=True (on `stream` if given). A
+    tensor (capture that arrives on the card) is moved with .to(), a no-op
+    where it already lies on `device`."""
+    if torch.is_tensor(host):
+        return host.to(device, torch.float32)
     t = torch.from_numpy(np.ascontiguousarray(host, dtype=np.float32))
     if device.type != "cuda":
         return t.to(device)
@@ -254,9 +257,11 @@ class FusedDevicePool:
         return chunk
 
     @torch.no_grad()
-    def round(self, block: np.ndarray, next_block: np.ndarray = None):
-        """One serving round. Returns the packed on-device result tensor
-        [C, frame_bytes+21] uint8; unpack() reads it to host in one D2H."""
+    def round(self, block, next_block: np.ndarray = None):
+        """One serving round of a [C, k*sym_len] block (host numpy, or a
+        tensor already on the card). Returns the packed on-device result
+        tensor [C, frame_bytes+21] uint8; unpack() reads it to host in one
+        D2H."""
         assert block.shape[0] == self.n_channels
         assert block.shape[1] % self.sym_len == 0, \
             "FusedDevicePool feeds whole symbols"

@@ -1,7 +1,8 @@
 """Package boundary of mercury_tpu_torch: it imports neither JAX (the GPU
-machine has none) nor the JAX package `mercury_tpu`, its entry points run on
-the card unless the caller asks for the CPU, and its kernel build reads only
-its own CUDA sources and targets Hopper (sm_90a)."""
+machine has none) nor the JAX package `mercury_tpu`, nor the repo root's
+bench.py, chip_smoke.py or tools/; its entry points run on the card unless
+the caller asks for the CPU, and its kernel build reads only its own CUDA
+sources and targets Hopper (sm_90a)."""
 
 import ast
 import pathlib
@@ -52,6 +53,16 @@ def test_imports_neither_jax_nor_mercury_tpu(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", [r for r in JAX_FREE
+                                 if r.startswith("mercury_tpu_torch")])
+def test_package_imports_no_root_script(rel):
+    """The package keeps its own copies: it imports none of the repo
+    root's scripts (bench.py, chip_smoke.py) nor its tools/ directory."""
+    bad = [n for n in _imported(REPO / rel)
+           if n.split(".")[0] in ("bench", "tools", "chip_smoke")]
+    assert not bad, f"{rel} imports {bad}"
+
+
 def test_imports_and_receives_without_jax():
     """Every port module imports, and a CPU transmit and receive run, with
     neither jax nor any mercury_tpu module loaded."""
@@ -71,7 +82,8 @@ def test_imports_and_receives_without_jax():
             "res = RxChain(g, device='cpu').receive(buf)\n"
             "assert bool(res.crc_ok[0]) and torch.equal(res.payload, payload)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'mercury_tpu'))\n"
+            "             ('jax', 'jaxlib', 'mercury_tpu', 'bench', 'tools',\n"
+            "              'chip_smoke'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -5,15 +5,16 @@
         [--out DIR]
 
 For each Es/N0 (an MFSK mode's channel SNR: --config 100 --esn0 -9 -13;
---ctrl: its control frames): a
-batch-256 capture buffer (chip_smoke.make_buffer, seed 160), one first
-decode per row with DD and BICM-ID off, or on an MFSK mode without the
-runner-up sync candidate (to count the rows it loses), 3 warm-up receives, 10 timed receives (host clock around the
-receive, ending in a synchronize: min / median / max), then one receive
-under torch.profiler: device busy (the table's "Self CUDA time total"; a
-sum over rows would count an aten op and its kernel twice), idle share =
-1 - busy / median receive, self CPU total and the top device items. With
---out, the table's top 25 rows go to DIR/profile_cfg<config>_<esn0>.txt.
+--ctrl: its control frames): a batch-256 capture buffer
+(mercury_tpu_torch.bench.make_buffer, seed 160), one first decode per row
+with DD and BICM-ID off, or on an MFSK mode without the runner-up sync
+candidate (to count the rows it loses), 3 warm-up receives, 10 timed
+receives (host clock around the receive, ending in a synchronize: min /
+median / max), then one receive under torch.profiler: device busy (the
+table's "Self CUDA time total"; a sum over rows would count an aten op and
+its kernel twice), idle share = 1 - busy / median receive, self CPU total
+and the top device items. With --out, the table's top 25 rows go to
+DIR/profile_cfg<config>_<esn0>.txt.
 Needs a card; exits 1 without one.
 """
 
@@ -28,7 +29,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import BATCH, make_buffer
+from mercury_tpu_torch.bench import BATCH, make_buffer
 from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.modem.rx import RxChain
 
