@@ -73,7 +73,15 @@ build/mercury_tpu_torch/), then:
      all 20 modes and CONFIG_0 with deep sync off (every row decoded),
      tools.serve_bench's fused and device pools at 256 channels (every
      channel decoded every round) and one adaptive tools.link_benchmark
-     session (CONFIG_0, 20 dB, 2000 bytes intact);
+     session (CONFIG_0, 20 dB, 2000 bytes intact). Then the qualification
+     tools at short sizes: one ber_campaign job (CONFIG_9 passband: a
+     waterfall within 1 dB of the documented Es/N0), one ber_sweep config
+     (CONFIG_9: FER 0 at its grid's top point), the ACK/BREAK
+     pattern sweep (CONFIG_100, -2..0 dB, 64 trials), one fading_ber point
+     (CONFIG_9, "good", 18 dB), audio_stress through the audio engine (120
+     bytes, a noise burst forcing a BREAK and a gearshift down) and the
+     roofline, every stage timed, each share at or below 105% of its
+     bound (the tool's bound() is this script's);
   3. decodes the reference's CONFIG_0, 3 and 9 capture buffers, those of
      CONFIG_10-16 and 100-102 at both pilot densities, and CONFIG_15/16's
      with the zero-forcing estimator (tests/golden), to their reference
@@ -122,8 +130,14 @@ from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.stream import StreamReceiver
 from mercury_tpu_torch.modem.tx import TxChain
 from mercury_tpu_torch.scale import analysis, serve, shard
-from mercury_tpu_torch.tools import link_benchmark, serve_bench
-from mercury_tpu_torch.tools import throughput_table
+from mercury_tpu_torch.tools import audio_stress, ber_campaign, ber_sweep
+from mercury_tpu_torch.tools import fading_ber, link_benchmark
+from mercury_tpu_torch.tools import pattern_detect_sweep, roofline
+from mercury_tpu_torch.tools import serve_bench, throughput_table
+# one yardstick: the roofline tool's bound, counts, raw launches and timer
+from mercury_tpu_torch.tools.roofline import (checked, fir_bound, fir_raw,
+                                              mf_bound, mf_raw, pcs_bound,
+                                              pcs_raw, warm_ms)
 
 BATCH = 256
 # Es/N0 (dB) of each main path: 12 dB up to QPSK, then tests/test_rx.py:64's
@@ -166,21 +180,6 @@ FREQ_FORMS = ("CONFIG_3", "CONFIG_9", "CONFIG_100")
 # the matched-filter kernels' tensor-core arithmetic
 MF_FORM = ("TF32 one pass: wgmma m64nNk8 tf32 x tf32 -> f32 (A from "
            "registers, B from shared memory), operands rounded with cvt.rna")
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"FP32": 67e12, "TF32": 495e12}
-
-
-def bound(nbytes: float, flops: float, kind: str) -> dict:
-    """The least time the card could take: compulsory bytes over the HBM
-    rate or operations over the peak of their type, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[kind]
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, "flop_kind": kind}
-
-
 def bound_text(b: dict, kernel_ms: float) -> str:
     return (f"bound {b['bound_ms']:.4g} ms by {b['bound_by']} "
             f"({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e9:.3f} GFLOP "
@@ -194,115 +193,6 @@ def mf_tflops(rows: int, bank_shape, n_cand: int, ms: float) -> float:
     GEMM's padding not counted."""
     a, lp, s = bank_shape
     return 8.0 * rows * a * n_cand * lp * s / (ms * 1e-3) / 1e12
-
-
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def raw_ms(launch, reps: int = 20) -> float:
-    """Mean device time of a raw kernel launch (a C entry point of the
-    kernel library on prepared operands, no torch work around it): the
-    kernel alone, not its wrapper's host side."""
-    err = launch()
-    assert err == 0, f"launch failed: cudaError_t {err}"
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        launch()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def mf_bound(rows: int, seg_len: int, bank_shape, n_cand: int,
-             out_bytes: int) -> dict:
-    """Matched-filter bound: seg (8 B a sample), bank, outputs of out_bytes
-    per (row, lag); 8 flops per complex multiply-add at the TF32 peak."""
-    a, lp, s = bank_shape
-    return bound(8 * rows * seg_len + 8 * a * lp * s
-                 + out_bytes * rows * n_cand,
-                 8.0 * rows * a * n_cand * lp * s, "TF32")
-
-
-def mf_raw(name: str, seg, bank, window: int, outs):
-    """A raw launch of a matched-filter kernel on _dmf_operands' operands
-    (packing and prefix sums done once, outside the timing)."""
-    lib = native.load_library()
-    seg, tmpl, ce, ef = kernels._dmf_operands(seg, bank, window, name)
-    b, seg_len = seg.shape
-    a, lp, s = bank.shape
-    fn = lib.dmf_launch if name == "deep_mf_score" else lib.dmf_max_launch
-    operands = (seg, tmpl, ce, ef, *outs)        # alive as long as the launch
-    return lambda: fn(*[t.data_ptr() for t in operands], b, a, seg_len, lp, s,
-                      2 * window + 1, 8 * tmpl.shape[2], kernels._stream(seg))
-
-
-def fir_raw(pb, osc, taps, stride, start=None, n_out=None, offset=None,
-            freq=None, fs=None):
-    """A raw launch of mix_fir_decimate on the wrapper's operands (the
-    output allocated once, outside the timing)."""
-    lib = native.load_library()
-    b, n = pb.shape
-    ntaps = taps.shape[0]
-    if start is None:
-        n_out, offset = (n - 1) // stride + 1, (ntaps - 1) // 2
-    dst = torch.empty((b, n_out), dtype=torch.complex64, device=pb.device)
-    return lambda: lib.mfd_launch(
-        pb.data_ptr(), osc.data_ptr(), taps.data_ptr(),
-        None if start is None else start.data_ptr(),
-        None if freq is None else freq.data_ptr(),
-        0.0 if freq is None else float(fs), dst.data_ptr(), b, n, n_out,
-        stride, offset, ntaps, kernels._stream(pb))
-
-
-def pcs_raw(bb_dec, idx0, fidx, bank, prepared=None):
-    """A raw launch of pilot_cand_score on the wrapper's operands (the
-    baseband at its own strides; the kernel clips the candidates)."""
-    lib = native.load_library()
-    b, n_dec = bb_dec.shape
-    m = idx0.shape[1]
-    f_n, nsym, s_d = bank.shape
-    bank_t, e_t = prepared or kernels.pilot_bank(bank)
-    res = torch.empty((b, m), dtype=torch.float32, device=bb_dec.device)
-    operands = (bb_dec, idx0.long().contiguous(), fidx.long().contiguous(),
-                bank_t, e_t, res)
-    return lambda: lib.pcs_launch(
-        *[t.data_ptr() for t in operands], b, n_dec, bb_dec.stride(0),
-        bb_dec.stride(1), m, f_n, nsym, s_d, kernels._stream(bb_dec))
-
-
-def pcs_bound(bb_dec, idx0, fidx, bank) -> dict:
-    """pilot_cand_score's bound. Bytes: each row's samples under some
-    candidate, the bank rows referenced, starts, rows, energies and scores;
-    flops: 8 per complex multiply-add and 4 per sample energy (FP32)."""
-    b, n_dec = bb_dec.shape
-    m = idx0.shape[1]
-    _, nsym, s_d = bank.shape
-    span = nsym * s_d
-    st, fr = kernels._clip_candidates(n_dec, idx0, fidx, bank)
-    cover = torch.zeros((b, n_dec + 1), dtype=torch.int32,
-                        device=bb_dec.device)
-    one = torch.ones_like(st, dtype=torch.int32)
-    cover.scatter_add_(1, st, one)
-    cover.scatter_add_(1, st + span, -one)
-    row_samples = int((cover.cumsum(1)[:, :n_dec] > 0).sum())
-    n_rows_used = int(torch.unique(fr).numel())
-    return {**bound(8 * row_samples + 8 * n_rows_used * span + 16 * b * m
-                    + 4 * nsym + 4 * b * m, 12.0 * b * m * span, "FP32"),
-            "bank_rows": n_rows_used}
 
 
 def shape_key(name: str, a: dict) -> tuple:
@@ -410,7 +300,7 @@ def hold_path_shapes(log: ShapeLog) -> dict:
             text = f"within {limit:.3e}"
             library = fir_path_library(a, limit, got)
             if library is not None:
-                lib_ms = cuda_ms(library, 5)
+                lib_ms = warm_ms(library, 5)
                 text += (f"; library (cuDNN conv1d + rotation) {lib_ms:.4f} "
                          f"ms, agrees within {limit:.3e}")
         elif name == "pilot_cand_score":
@@ -445,9 +335,9 @@ def hold_path_shapes(log: ShapeLog) -> dict:
             text = (f"within rtol/atol 1e-3, argmax equal on "
                     f"{int(clear.sum())}/{clear.numel()} clear rows")
         st = {"launches": log.launches[name, key], "path": entry["path"],
-              "max_abs_err": err, "ms": cuda_ms(lambda: wrapper(**a), 5),
-              "kernel_ms": raw_ms(raw, 5),
-              "plain_ms": cuda_ms(lambda: plain(**pa), 5),
+              "max_abs_err": err, "ms": warm_ms(lambda: wrapper(**a), 5),
+              "kernel_ms": warm_ms(checked(raw, name), 5),
+              "plain_ms": warm_ms(lambda: plain(**pa), 5),
               "library_ms": lib_ms, **bd}
         out[f"{name} {key}"] = st
         print(f"path shape {name} {list(key)} (first launched by "
@@ -466,31 +356,6 @@ def golden(name: str) -> np.ndarray:
     info = meta[name]
     return np.fromfile(GOLDEN / f"{name}.bin",
                        dtype=np.dtype(info["dtype"])).reshape(info["shape"])
-
-
-def fir_window_samples(n: int, start: torch.Tensor, n_out: int,
-                       stride: int, offset: int, ntaps: int):
-    """(passband samples the FIR reads over all rows, oscillator samples it
-    reads once): each row's input window clipped to [0, n)."""
-    lo = torch.clamp(start + offset - (ntaps - 1), 0, n)
-    hi = torch.clamp(start + offset + (n_out - 1) * stride + 1, 0, n)
-    used = torch.zeros(n + 1, dtype=torch.int32, device=start.device)
-    used.index_add_(0, lo, torch.ones_like(lo, dtype=torch.int32))
-    used.index_add_(0, hi, -torch.ones_like(hi, dtype=torch.int32))
-    return int((hi - lo).sum()), int((used.cumsum(0)[:n] > 0).sum())
-
-
-def fir_bound(b: int, n: int, start, n_out: int, stride: int, offset: int,
-              ntaps: int, freq: bool = False) -> dict:
-    """Bytes: the passband windows (4 B), the oscillator over their union
-    (8 B), taps, per-row offsets (4 B), output (8 B); flops: 2 per sample
-    mixed (8 with a per-row offset: the complex product of the oscillator
-    and the rotation too; the sine and cosine, special-function work, are
-    not counted), 4 per tap of an output (FP32)."""
-    pb_n, osc_n = fir_window_samples(n, start, n_out, stride, offset, ntaps)
-    return bound(4 * pb_n + 8 * osc_n + 4 * ntaps + 8 * b * n_out
-                 + (4 * b if freq else 0),
-                 (8 if freq else 2) * pb_n + 4 * b * n_out * ntaps, "FP32")
 
 
 def fir_library(pb, _osc, taps, stride, g):
@@ -576,10 +441,10 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
         del want
         n_out = (n - 1) // stride + 1
         st = {"max_abs_err": err, "n_ts": n_out,
-              "ms": cuda_ms(lambda: kernels.mix_fir_decimate(*args, **kw)),
-              "kernel_ms": raw_ms(fir_raw(*args, **kw)),
-              "plain_ms": cuda_ms(lambda: kernels.mix_fir_decimate_ref(
-                  *args, **kw)),
+              "ms": warm_ms(lambda: kernels.mix_fir_decimate(*args, **kw), 10),
+              "kernel_ms": warm_ms(checked(fir_raw(*args, **kw), label), 20),
+              "plain_ms": warm_ms(lambda: kernels.mix_fir_decimate_ref(
+                  *args, **kw), 10),
               "library_ms": None}
         lib_text = "library: none (per-row offsets)"
         if not freq:
@@ -588,7 +453,7 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
                 ).item()
             assert lib_err <= 1e-4, (
                 f"{label}: conv1d yardstick differs by {lib_err}")
-            st["library_ms"] = cuda_ms(library)
+            st["library_ms"] = warm_ms(library, 10)
             lib_text = (f"library (two calls: cuDNN conv1d [{b},1,{n}] x "
                         f"[2,1,{ntaps}] stride {stride}, then torch.complex * "
                         f"rotation) {st['library_ms']:.4f} ms, agrees within "
@@ -625,11 +490,12 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
         bd = fir_bound(b, n, start, row["n_out"], g.interp, row["offset"],
                        ntaps, freq)
         st = {"data_err": err, "n_data": row["n_out"],
-              "data_ms": cuda_ms(lambda: kernels.mix_fir_decimate(*data,
-                                                                  **row)),
-              "data_kernel_ms": raw_ms(fir_raw(*data, **row)),
-              "data_plain_ms": cuda_ms(
-                  lambda: kernels.mix_fir_decimate_ref(*data, **row)),
+              "data_ms": warm_ms(lambda: kernels.mix_fir_decimate(*data,
+                                                                  **row), 10),
+              "data_kernel_ms": warm_ms(checked(fir_raw(*data, **row), label),
+                                        20),
+              "data_plain_ms": warm_ms(
+                  lambda: kernels.mix_fir_decimate_ref(*data, **row), 10),
               "data_bound_ms": bd["bound_ms"]}
         print(f"mix_fir_decimate {label} data FIR -> [{b},{row['n_out']}] "
               f"at per-row starts{' and offsets (+-45 Hz)' if freq else ''}: "
@@ -760,10 +626,10 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
         err = (got - want).abs().max().item()
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        k_ms = cuda_ms(lambda: kernels.deep_mf_score(seg, bank, window), 5)
-        raw = raw_ms(mf_raw("deep_mf_score", seg, bank, window,
-                            [torch.empty_like(got)]), 5)
-        p_ms = cuda_ms(lambda: kernels.deep_mf_score_ref(seg, bank, window), 5)
+        k_ms = warm_ms(lambda: kernels.deep_mf_score(seg, bank, window), 5)
+        raw = warm_ms(checked(mf_raw("deep_mf_score", seg, bank, window,
+                                     [torch.empty_like(got)]), label), 5)
+        p_ms = warm_ms(lambda: kernels.deep_mf_score_ref(seg, bank, window), 5)
         bd = mf_bound(rows, seg_len, bank.shape, 2 * window + 1, 4)
         if label == "scan":
             out.update(bd, ms=k_ms, kernel_ms=raw, plain_ms=p_ms)
@@ -817,11 +683,12 @@ def check_deep_mf_max(rx: RxChain, gen: torch.Generator,
     assert n_diff == 0, f"deep_mf_max: sarg differs at {n_diff} clear lags"
     err = (smax - ref_max).abs().max().item()
     out = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: kernels.deep_mf_max(seg, bank, window), 5),
-           "kernel_ms": raw_ms(mf_raw("deep_mf_max", seg, bank, window,
-                                      [torch.empty_like(smax),
-                                       torch.empty_like(sarg)]), 5),
-           "plain_ms": cuda_ms(
+           "ms": warm_ms(lambda: kernels.deep_mf_max(seg, bank, window), 5),
+           "kernel_ms": warm_ms(checked(mf_raw(
+               "deep_mf_max", seg, bank, window,
+               [torch.empty_like(smax), torch.empty_like(sarg)]),
+               "deep_mf_max"), 5),
+           "plain_ms": warm_ms(
                lambda: kernels.deep_mf_max_ref(seg, bank, window), 5),
            "library_ms": None}
     out.update(mf_bound(batch, seg_len, bank.shape, 2 * window + 1, 12))
@@ -864,9 +731,12 @@ def check_pilot_cand_score(rx: RxChain, gen: torch.Generator,
     assert (got[0] > 0).all() and (batch < 3 or (got[2] == 0).all())
     err = (got - want).abs().max().item()
     out = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: kernels.pilot_cand_score(*args, prepared)),
-           "kernel_ms": raw_ms(pcs_raw(*args, prepared)),
-           "plain_ms": cuda_ms(lambda: kernels.pilot_cand_score_ref(*args)),
+           "ms": warm_ms(lambda: kernels.pilot_cand_score(*args, prepared),
+                         10),
+           "kernel_ms": warm_ms(checked(pcs_raw(*args, prepared),
+                                        "pilot_cand_score"), 20),
+           "plain_ms": warm_ms(lambda: kernels.pilot_cand_score_ref(*args),
+                               10),
            "library_ms": None}
     out.update(pcs_bound(*args))
     print(f"pilot_cand_score [{batch},{n_dec}] M={m} x{list(bank.shape)}: "
@@ -2322,6 +2192,77 @@ def drive_bench_and_tools(dev: torch.device) -> dict:
     return {"launches": launches}
 
 
+def drive_qualification_tools(dev: torch.device) -> dict:
+    """The qualification tools on the card at short sizes: one
+    ber_campaign job (CONFIG_9 passband, scan 64 / confirm 256 frames at
+    batch 128: a waterfall found within 1 dB of the documented Es/N0); one
+    ber_sweep config (CONFIG_9, 256 frames at batch 256: its grid's top
+    point at FER 0, which ends the sweep, and a waterfall there); the
+    pattern sweep on CONFIG_100 at -2..0 dB, 64 trials a point and 64
+    false-alarm trials (each pattern detected by its own detector in 95%
+    of the trials or more, as the JAX record's 100%; no false alarm); one
+    fading point (CONFIG_9, "good", 18 dB, 64 frames: FER <= 0.25, the JAX
+    record 0.078 at 256 frames); audio_stress at 120 bytes with a noise
+    burst from 4 to 120 s of the link clock (intact, a BREAK and a
+    gearshift down); the roofline, every stage timed (3 launches, not
+    profiled) and each share at or below its limit. Every kernel must
+    launch."""
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    times = {}
+    entry = ber_campaign.run_job(9, "high", HIGH_DENSITY, "passband", 128,
+                                 64, 256, dev, print)
+    gap = entry["gap_vs_documented_db"]
+    assert gap is not None and abs(gap) <= 1.0, entry
+    print(f"ber_campaign CONFIG_9 passband: waterfall "
+          f"{entry['waterfall_fer10']:.3f} dB, effective "
+          f"{entry['effective_waterfall_db']} dB (documented "
+          f"{entry['documented_db']}), {len(entry['points'])} points")
+    times["ber_campaign"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    sw = ber_sweep.sweep_config(9, BATCH, BATCH, dev)
+    top = max(ber_sweep.GRIDS[9])
+    assert [(p["esn0_db"], p["fer"]) for p in sw["points"]] == [(top, 0.0)], sw
+    assert sw["waterfall_fer10"] == top, sw
+    print(f"ber_sweep CONFIG_9: {json.dumps(sw)}")
+    times["ber_sweep"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    pd = pattern_detect_sweep.sweep(100, 64, 64, 64, -2.0, 0.0, dev)
+    for row in pd["detection"]:
+        assert row[f"pdet_{row['tx']}"] >= 0.95, row
+    assert all(v["alarms"] == 0 for v in pd["false_alarm"].values()), pd
+    times["pattern_detect_sweep"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    (pt,) = fading_ber.run_config(9, "good", 64, 64, device=dev, snrs=(18,))
+    assert pt["fer"] <= 0.25, pt
+    print(f"fading_ber CONFIG_9 good 18 dB: {json.dumps(pt)}")
+    times["fading_ber"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    st = audio_stress.stress(120, burst=(4.0, 120.0), device=dev, echo=False)
+    print(f"audio_stress 120 bytes, burst 4-120 s: "
+          f"{json.dumps(st['summary'])}; analyzer counts "
+          f"{st['analyzer']['counts']}")
+    assert audio_stress.passed(st["summary"]), st["summary"]
+    times["audio_stress"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    rec = roofline.run(dev, reps=3, profile=False)
+    assert len(rec["stages"]) == 13, rec["stages"]
+    assert all(rec["receive"][k]["decoded"] == BATCH
+               for k in ("CONFIG_9", "CONFIG_3", "CONFIG_0", "timed")), rec
+    times["roofline"] = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    assert all(v > 0 for v in launches.values()), launches
+    print("qualification tools: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in times.items())
+        + f"; launches {launches}")
+    return {"launches": launches}
+
+
 def decode_golden(cfg: int, dev: torch.device, density: int = HIGH_DENSITY,
                   estimator: str = "auto") -> None:
     rx = RxChain(build_geometry(cfg, density, estimator=estimator),
@@ -2434,6 +2375,11 @@ def main() -> int:
     t_new = time.perf_counter()
     run("bench and tools", drive_bench_and_tools, dev)
     print(f"bench and tool phases: {time.perf_counter() - t_new:.1f} s")
+    # the qualification tools: campaign, pattern sweep, fading, audio
+    # stress, roofline
+    t_new = time.perf_counter()
+    run("qualification tools", drive_qualification_tools, dev)
+    print(f"qualification tool phase: {time.perf_counter() - t_new:.1f} s")
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     log.path = "golden"
     for cfg in (0, 3, 9):

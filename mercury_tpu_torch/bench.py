@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from mercury_tpu_torch.channel import sim
-from mercury_tpu_torch.convert import resolve_device
+from mercury_tpu_torch.convert import cli_device, describe, resolve_device
 from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.tx import TxChain
@@ -95,15 +95,6 @@ def sync(device: torch.device) -> None:
     """Wait for the card's queued work (nothing to wait for on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def describe(device: torch.device) -> dict:
-    """{"backend": "torch-cuda" or "torch-cpu", "device": the card's name
-    or "cpu"}: what every result of the port's measuring tools names."""
-    if device.type == "cuda":
-        return {"backend": "torch-cuda",
-                "device": torch.cuda.get_device_name(device)}
-    return {"backend": "torch-cpu", "device": "cpu"}
 
 
 def receive_rate(rx: RxChain, buf: torch.Tensor, reps: int) -> float:
@@ -248,10 +239,8 @@ def main(argv=None, *, batch: int = BATCH, reps: int = REPS) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA card)")
     args = ap.parse_args(argv)
-    try:
-        device = resolve_device("cpu" if args.cpu else None)
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
+    device = cli_device(args.cpu)
+    if device is None:
         return 1
     w = worker(device, batch, reps)
     sps = w["samples_per_s"]

@@ -25,7 +25,7 @@ import sys
 
 import numpy as np
 
-from mercury_tpu_torch.convert import resolve_device
+from mercury_tpu_torch.convert import cli_device
 from mercury_tpu_torch.link import protocol as P
 from mercury_tpu_torch.link.node import ArqConfig, ArqNode
 from mercury_tpu_torch.link.sim import ChannelModel, LinkSimulator
@@ -171,10 +171,8 @@ def main(argv=None) -> int:
                     help="receiver profile (track = decision-directed "
                     "fading tracking)")
     args = ap.parse_args(argv)
-    try:
-        device = resolve_device("cpu" if args.cpu else None)
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
+    device = cli_device(args.cpu)
+    if device is None:
         return 1
 
     if args.mode == "stress":

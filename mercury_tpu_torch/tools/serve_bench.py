@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from mercury_tpu_torch import bench
-from mercury_tpu_torch.convert import resolve_device
+from mercury_tpu_torch.convert import cli_device, describe, resolve_device
 from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.tx import TxChain
@@ -309,15 +309,13 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA card)")
     args = ap.parse_args(argv)
-    try:
-        device = resolve_device("cpu" if args.cpu else None)
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
+    device = cli_device(args.cpu)
+    if device is None:
         return 1
     results = run(device, args.channels, args.rounds, args.pools,
                   lambda m: print(m, flush=True))
     if args.out:
-        meta = {**bench.describe(device), "config": CFG,
+        meta = {**describe(device), "config": CFG,
                 "rounds": args.rounds,
                 "method": "lockstep rounds: feed -> gather -> H2D -> batched "
                           "receive -> D2H -> re-arm; kernel row: "

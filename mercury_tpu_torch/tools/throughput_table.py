@@ -22,9 +22,9 @@ import time
 import numpy as np
 import torch
 
-from mercury_tpu_torch.bench import describe, sync
+from mercury_tpu_torch.bench import sync
 from mercury_tpu_torch.channel import sim
-from mercury_tpu_torch.convert import resolve_device
+from mercury_tpu_torch.convert import cli_device, describe, resolve_device
 from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.tx import TxChain
@@ -146,10 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA card)")
     args = ap.parse_args(argv)
-    try:
-        device = resolve_device("cpu" if args.cpu else None)
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
+    device = cli_device(args.cpu)
+    if device is None:
         return 1
     out = table(device, 3 if args.quick else REPS, sweep=not args.quick)
     print(markdown(out))
