@@ -63,7 +63,15 @@ build/mercury_tpu_torch/), then:
      shard's window; time_sharded_receive_stream on CONFIG_16, K = 3
      blocks, 256 streams, its halo copies profiled (their overlap with the
      decodes' kernels, a same-card copy rate into
-     analysis.predicted_efficiency); a 2 x 2 (dcn, t) mesh; time_sharded_fir
+     analysis.predicted_efficiency); a 2 x 2 (dcn, t) mesh; then meshes
+     over two processes (scale.dist's launcher starts 2 ranks of
+     rank_forms: on one card both over gloo, CUDA tensors through host
+     memory; NCCL with a card a rank): that 2 x 2 mesh with dcn across the
+     ranks, CONFIG_9's time axis across them, CONFIG_0 channel-parallel,
+     each rank's claims and payloads equal to the one-process form's, each
+     form's wall beside it, the ranks' idle shares, peak memory, their
+     link rate and the kernel shapes they launched held in the ranks;
+     time_sharded_fir
      against the unsharded FIR; deep_profile "c2f" and "full" at CONFIG_3;
      the legacy GI metrics and coherent_preamble_rescore against the CPU.
      Then the measuring entry points as a user runs them: `python -m
@@ -98,15 +106,20 @@ line is
 """
 
 import contextlib
+import gc
 import inspect
 import io
 import json
+import os
 import pathlib
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -129,7 +142,7 @@ from mercury_tpu_torch.modem.patterns import PatternSignaler
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.stream import StreamReceiver
 from mercury_tpu_torch.modem.tx import TxChain
-from mercury_tpu_torch.scale import analysis, serve, shard
+from mercury_tpu_torch.scale import analysis, dist, serve, shard
 from mercury_tpu_torch.tools import audio_stress, ber_campaign, ber_sweep
 from mercury_tpu_torch.tools import fading_ber, link_benchmark
 from mercury_tpu_torch.tools import pattern_detect_sweep, roofline
@@ -1106,6 +1119,28 @@ def timed_runs(fn, reps: int = 3) -> tuple:
     return res, times
 
 
+def profile_busy(fn) -> tuple:
+    """fn() once under torch.profiler, ending in a synchronize -> (its
+    result, device busy ms: the table's "Self CUDA time total" less NCCL's
+    kernels, host ms of the call, NCCL's kernels' ms: an NCCL kernel
+    spins on the card while it waits for its peer)."""
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=3)
+    m = re.search(r"Self CUDA time total: ([\d.]+)(s|ms|us)", table)
+    assert m, f"the profiler saw no device time:\n{table}"
+    busy = float(m.group(1)) * {"s": 1e3, "ms": 1.0, "us": 1e-3}[m.group(2)]
+    nccl = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.key.startswith(("ncclDevKernel", "ncclKernel"))) / 1e3
+    return res, busy - nccl, wall, nccl
+
+
 def drive_chain_surface(dev: torch.device) -> dict:
     """CONFIG_9 at batch 256: decode_at on frames at +20 Hz (the offset as
     applied) at the known delay, and refine_decode on sibling rows cut as
@@ -1291,18 +1326,7 @@ def drive_stream_and_obs(dev: torch.device) -> dict:
         0.002 * rng.standard_normal((1, sr.buf_len)).astype(np.float32))
     receive(quiet)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        receive(quiet)
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=3)
-    m = re.search(r"Self CUDA time total: ([\d.]+)(s|ms|us)", table)
-    assert m, f"the profiler saw no device time:\n{table}"
-    busy = float(m.group(1)) * {"s": 1e3, "ms": 1.0, "us": 1e-3}[m.group(2)]
+    _res, busy, wall, _nccl = profile_busy(lambda: receive(quiet))
     t_plain = min(timed_runs(lambda: receive(quiet))[1])
     print(f"StreamReceiver CONFIG_9, a window without a frame: receive "
           f"{t_plain:.2f} ms (min of 3), under the profiler {wall:.2f} ms; "
@@ -1587,19 +1611,11 @@ def drive_pools(dev: torch.device, n_ch: int = BATCH, k_syms: int = 17,
     for r in range(3):
         one_round(again, r)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _, packed = one_round(again, 3)
-        torch.cuda.synchronize()
+    (_, packed), busy, _wall, _nccl = profile_busy(
+        lambda: one_round(again, 3))
     fb5 = g.frame_bytes + 5
     assert torch.equal(packed[:, :fb5], packed3[:, :fb5]), (
         "round 3's payload, ok or delay differs on the second pool")
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=3)
-    m = re.search(r"Self CUDA time total: ([\d.]+)(s|ms|us)", table)
-    assert m, f"the profiler saw no device time:\n{table}"
-    busy = float(m.group(1)) * {"s": 1e3, "ms": 1.0, "us": 1e-3}[m.group(2)]
     del again
     report("FusedDevicePool", got, ms, pool.batched_dispatches,
            n_ch * blk * 4, d2h,
@@ -1668,7 +1684,8 @@ def ts_plan(g, n_rows: int, n_dev: int) -> dict:
     samples after the end of the frame straddling into it) and one
     straddling each odd slice's right seam (1/3 of a frame before it; the
     last slice's frame stays inside it); odd rows one 8 samples
-    before the first seam and one 4 samples before the third, each claimed
+    before the first seam and (with 4 slices or more) one 4 samples before
+    the third, each claimed
     by one of the two slices at its seam: the left one where its
     matched-filter peak falls below the seam (and the right one's decode
     of it is dropped by the dedupe), else the right one. -> {(row, slice,
@@ -1687,7 +1704,8 @@ def ts_plan(g, n_rows: int, n_dev: int) -> dict:
                     plan[r, j] = (j + 1) * n - fl - 100
         else:
             plan[r, "0|1"] = n - 8
-            plan[r, "2|3"] = 3 * n - 4
+            if n_dev > 3:
+                plan[r, "2|3"] = 3 * n - 4
     return plan
 
 
@@ -1984,12 +2002,10 @@ def drive_stream_form(dev: torch.device) -> dict:
     return {"launches": launches, "ms": ms, "overlap": ov, "rate": rate}
 
 
-def drive_mesh_2d(dev: torch.device) -> dict:
-    """A 2 x 2 (dcn, t) virtual mesh: CONFIG_16 at 31 dB, 2 groups x 128
-    streams of 2 x 72896 samples (a frame mid slice 0 and one straddling
-    the seam on every row): every frame claimed once, and no transfer
-    between the groups."""
-    g = build_geometry(16)
+def mesh_2d_case(g, dev: torch.device) -> tuple:
+    """drive_mesh_2d's streams: CONFIG_16 at 31 dB, 256 streams of 2 x
+    n_local, a frame straddling the seam and one mid slice 1 on every row.
+    -> (plan, stream, payloads)."""
     n = g.nofdm * g.buffer_nsymb * g.interp
     fl = g.nofdm * (g.nsymb + g.preamble_nsymb) * g.interp
     plan = {}
@@ -1997,6 +2013,17 @@ def drive_mesh_2d(dev: torch.device) -> dict:
         plan[r, 0] = n - fl // 2
         plan[r, 1] = n + 20000 + 41 * (r % 64)
     stream, payloads = sharded_stream(g, dev, BATCH, plan, 2, 31.0, 2)
+    return plan, stream, payloads
+
+
+def drive_mesh_2d(dev: torch.device) -> dict:
+    """A 2 x 2 (dcn, t) virtual mesh: CONFIG_16 at 31 dB, 2 groups x 128
+    streams of 2 x 72896 samples (a frame mid slice 0 and one straddling
+    the seam on every row): every frame claimed once, and no transfer
+    between the groups."""
+    g = build_geometry(16)
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    plan, stream, payloads = mesh_2d_case(g, dev)
     mesh = shard.make_mesh_2d(2, 2, axes=("dcn", "t"), devices=[dev] * 4)
     run = shard.time_sharded_receive(RxChain(g, device=dev), mesh,
                                      time_axis="t", batch_axis="dcn")
@@ -2013,6 +2040,290 @@ def drive_mesh_2d(dev: torch.device) -> dict:
           f"none between groups; wall {ms[0]:.2f} then {ms[1]:.2f} ms; "
           f"launches over 2 calls {launches}")
     return {"launches": launches}
+
+
+# the multi-process forms: each as 2 ranks (scale.dist) and as the
+# one-process virtual mesh of the same shape on the card
+PROCESS_FORMS = ("2-D CONFIG_16", "time axis CONFIG_9",
+                 "channel-parallel CONFIG_0")
+
+
+def process_case(name: str, dev: torch.device) -> tuple:
+    """The input of one of PROCESS_FORMS, made from its seed on the card
+    alike in every process. -> (geometry, input, plan or None, payloads,
+    slices a row: 2, or None for channel-parallel)."""
+    if name == "2-D CONFIG_16":
+        g = build_geometry(16)
+        plan, stream, payloads = mesh_2d_case(g, dev)
+        return g, stream, plan, payloads, 2
+    if name == "time axis CONFIG_9":
+        g = build_geometry(9)
+        plan = ts_plan(g, BATCH, 2)
+        stream, payloads = sharded_stream(g, dev, BATCH, plan, 2, 12.0, 309)
+        return g, stream, plan, payloads, 2
+    g = build_geometry(0)
+    buf, payload, _delay = make_buffer(g, dev, 12.0, 910, batch=BATCH)
+    return g, buf, None, payload, None
+
+
+def process_program(name: str, g, dev: torch.device, group=None):
+    """The program of one of PROCESS_FORMS: on a mesh over the group's 2
+    ranks, or (group None) on the same mesh in one process, every shard on
+    dev: the 2 x 2 (dcn, t) mesh with dcn across the ranks, the time axis
+    across them, or the channel axis across them."""
+    per_rank = 2 if group is not None else 1
+    rx = RxChain(g, device=dev)
+    if name == "2-D CONFIG_16":
+        mesh = shard.make_mesh_2d(2, 2, axes=("dcn", "t"),
+                                  devices=[dev] * (4 // per_rank),
+                                  group=group)
+        return shard.time_sharded_receive(rx, mesh, time_axis="t",
+                                          batch_axis="dcn")
+    if name == "time axis CONFIG_9":
+        return shard.time_sharded_receive(rx, shard.make_mesh(
+            2, axis="t", devices=[dev] * (2 // per_rank), group=group))
+    return shard.channel_parallel_receive(rx, shard.make_mesh(
+        2, devices=[dev] * (2 // per_rank), group=group))
+
+
+def process_turns(run2, run1, x, group) -> tuple:
+    """The 2-rank program run2 and, on rank 0, the one-process program run1
+    on the same input, in turns (one, two, two, one, one, two) after a
+    warm-up of each: each call from a barrier of the ranks to its
+    synchronize and a barrier after it (rank 1 waits in the barriers while
+    rank 0 runs run1). -> (run2's last result, run1's (None on rank 1),
+    host ms of the 3 2-rank calls, of the 3 one-process calls)."""
+    def call(run):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        res = None if run is None else run(x)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    res2, _ms = call(run2)
+    res1, _ms = call(run1)
+    walls = {run2: [], run1: []}
+    for run in (run1, run2, run2, run1, run1, run2):
+        res, ms = call(run)
+        walls[run].append(ms)
+    return res2, res1, walls[run2], walls[run1]
+
+
+def rank_forms(group) -> dict:
+    """A rank of drive_processes (scale.dist's rank program runs it): every
+    PROCESS_FORMS form over the 2 ranks and, on rank 0 with rank 1 idle,
+    the same form on one process (process_turns), the kernels' counts from
+    0 just before and read just after; then one call of each 2-rank form
+    under the profiler (device busy: this process's kernels), the peak
+    memory, the process-to-process link rate, a rank's own CONFIG_0 shard
+    alone and with the other rank's at once, rank 0's unsharded CONFIG_9
+    receive of BENCH's capture, and every kernel shape launched held
+    against its plain version (hold_path_shapes), the ranks in turn. ->
+    the results on the host, the figures and the counts."""
+    dev = group.devices[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    native.load_library()
+    log = ShapeLog()
+    log.path = f"processes, rank {group.rank}"
+    cases = {name: process_case(name, dev) for name in PROCESS_FORMS}
+    forms = {name: (process_program(name, cases[name][0], dev, group),
+                    cases[name][1]) for name in PROCESS_FORMS}
+    one = ({name: process_program(name, cases[name][0], dev)
+            for name in PROCESS_FORMS} if group.rank == 0 else {})
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"describe": group.describe(), "forms": {}}
+
+    def host(res):
+        return {f: getattr(res, f).cpu() for f in ("crc_ok", "delay",
+                                                   "payload")}
+
+    kernels.reset_launch_counts()
+    for name, (run, x) in forms.items():
+        res2, res1, ms2, ms1 = process_turns(run, one.get(name), x, group)
+        out["forms"][name] = {
+            "res": host(res2), "one": None if res1 is None else host(res1),
+            "ms": ms2, "one_ms": ms1,
+            "transfers": analysis.logged_transfers(run)}
+    torch.cuda.synchronize()
+    out["launches"] = dict(kernels.LAUNCHES)
+    for name, (run, x) in forms.items():
+        torch.distributed.barrier()
+        _res, busy, _wall, nccl = profile_busy(lambda: run(x))
+        out["forms"][name]["busy_ms"] = busy
+        out["forms"][name]["nccl_ms"] = nccl
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del one
+    out["link"] = bench.link_rate(dev, bench.halo_bytes(build_geometry(9)),
+                                  group=group)
+    # what the ranks do to each other on a card: this rank's own shard of
+    # the channel-parallel form (its 128 rows through its chain), with the
+    # ranks in turn and both at once, in turns (alone, at once, at once,
+    # alone)
+    run, x = forms["channel-parallel CONFIG_0"]
+    sh = next(s for s in run.shards if s.local)
+    rows = BATCH // group.world_size
+    mine = x[group.rank * rows: (group.rank + 1) * rows]
+
+    def receive():
+        with sh.on():
+            return sh.rx.receive(mine)
+
+    shared = {"alone": [], "at once": []}
+    for kind in ("alone", "at once", "at once", "alone"):
+        for r in range(group.world_size):
+            torch.distributed.barrier()
+            if kind == "at once" or r == group.rank:
+                shared[kind] += timed_runs(receive, 4)[1][1:]
+            if kind == "at once":
+                break
+    out["shared"] = {k: float(np.mean(v)) for k, v in shared.items()}
+    torch.distributed.barrier()
+    if group.rank == 0:
+        # the unsharded receive of BENCH's capture, for the prediction
+        g9 = build_geometry(9)
+        rx9 = RxChain(g9, device=dev)
+        buf9, _payload, _delay = bench.bench_buffer(g9, dev)
+        out["t9"] = min(timed_runs(lambda: rx9.receive(buf9), 4)[1][1:])
+        out["msps"] = buf9.numel() / (out["t9"] * 1e-3) / 1e6
+    # the shapes held one rank at a time, so that their times are the card's
+    for r in range(group.world_size):
+        torch.distributed.barrier()
+        if r == group.rank:
+            out["held"] = len(hold_path_shapes(log))
+    return out
+
+
+def bench_under_torchrun() -> None:
+    """`torchrun --nproc-per-node 2 -m mercury_tpu_torch.bench` as the
+    README gives it (torch.distributed.run from this Python, from the
+    repo's root): each rank brings up the group on its card (one card: both
+    on cuda:0 over gloo), rank 0 prints BENCH's one line (every warm-up row
+    decoded, link "process" at a rate > 0, no transfer in the
+    channel-parallel receive, the overlap scheduled), rank 1 prints none;
+    both exit 0 within 300 s, or the whole process group is killed and the
+    phase fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "-m", "mercury_tpu_torch.bench"], cwd=dist.ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    assert proc.returncode == 0 and len(lines) == 1, (
+        proc.returncode, out[-3000:], err[-3000:])
+    rec = json.loads(lines[0])
+    sc = rec["scaling"]
+    assert rec["warmup_decoded"] == BATCH and rec["value"] > 0, rec
+    assert rec["backend"] == "torch-cuda", rec
+    assert sc["link"] == "process" and sc["link_bytes_per_s"] > 0, sc
+    assert sc["channel_parallel_collective_bytes"] == 0, sc
+    assert sc["time_sharded_overlap_scheduled"], sc
+    groups = re.findall(r"rank \d of 2 on .+?: (?:gloo|nccl)", err)
+    assert len(groups) == 2, err[-3000:]
+    print(f"processes: BENCH under torchrun in "
+          f"{time.perf_counter() - t0:.1f} s; " + "; ".join(sorted(groups)))
+    print(lines[0])
+
+
+def drive_processes(dev: torch.device) -> dict:
+    """Meshes over processes (scale.dist): PROCESS_FORMS as 2 ranks started
+    by the launcher on this machine's card(s) (both on one card over gloo,
+    CUDA tensors through host memory; NCCL with a card a rank where there
+    are two): the 2 x 2 CONFIG_16 plan of drive_mesh_2d (dcn across the
+    ranks), CONFIG_9 time-sharded with the time axis across the ranks (256
+    streams of 2 x 92480 at 12 dB, ts_plan's frames: its halos and dedupe
+    rows cross processes), CONFIG_0 channel-parallel, 2 x 128 rows at 12
+    dB (all four kernels under ranks). Each rank's result must equal the
+    one-process form's on the same input (run in rank 0, rank_forms):
+    crc_ok, and the payload and delay of every claim (for the time-sharded
+    forms every frame claimed once, check_claims). Prints each form's wall
+    (mean of 3 after a warm-up, host clock) beside the one-process form's,
+    each rank's idle share and peak memory, a rank's own shard alone and at
+    once with the other's, the process-to-process link rate and
+    predicted_efficiency at it; the ranks hold every kernel shape they
+    launched. This process only starts the ranks and checks them, so that
+    both forms are timed in like processes, in turns. Then BENCH as 2
+    ranks under torchrun (bench_under_torchrun)."""
+    # the ranks share the card: hand them what this process has cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ranks, logs = dist.run_ranks(f"{pathlib.Path(__file__).resolve()}"
+                                     ":rank_forms", 2, work, timeout=600)
+    t_ranks = time.perf_counter() - t0
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            print(f"[rank {r}] {line}")
+    for name in PROCESS_FORMS:
+        _g, _x, plan, payloads, n_dev = process_case(name, dev)
+        ref = ranks[0]["forms"][name]["one"]
+        for r, out in enumerate(ranks):
+            got = out["forms"][name]["res"]
+            claim = got["crc_ok"]
+            assert torch.equal(claim, ref["crc_ok"]), (
+                f"{name}, rank {r}: claims differ from one process's on "
+                f"{int((claim != ref['crc_ok']).sum())} rows")
+            for f in ("payload", "delay"):
+                assert torch.equal(got[f][claim], ref[f][claim]), (name, f)
+            if plan is None:
+                assert bool(claim.all()) and torch.equal(
+                    got["payload"], payloads.cpu()), name
+            else:
+                counts = check_claims(f"{name}, rank {r}",
+                                      types.SimpleNamespace(**got), plan,
+                                      payloads, n_dev)
+        ms2 = ranks[0]["forms"][name]["ms"]
+        ms1 = ranks[0]["forms"][name]["one_ms"]
+        wall2, wall1 = float(np.mean(ms2)), float(np.mean(ms1))
+        busy = [out["forms"][name]["busy_ms"] for out in ranks]
+        nccl = [out["forms"][name]["nccl_ms"] for out in ranks]
+        moves = ranks[0]["forms"][name]["transfers"]
+        print(f"processes {name}: 2 ranks {wall2:.2f} ms against one "
+              f"process {wall1:.2f} ms (x{wall2 / wall1:.3f}; means of 3 in "
+              f"turns, 2 ranks {[round(m, 2) for m in ms2]}, one "
+              f"{[round(m, 2) for m in ms1]}); device busy {busy[0]:.3f} / "
+              f"{busy[1]:.3f} ms (rank 0 / 1, one call under the "
+              f"profiler; NCCL's kernels apart, {nccl[0]:.3f} / "
+              f"{nccl[1]:.3f} ms): idle share {1 - busy[0] / wall2:.3f} / "
+              f"{1 - busy[1] / wall2:.3f}, both ranks' kernels "
+              f"{sum(busy):.3f} ms of the {wall2:.2f} ms wall; every "
+              f"rank's claims, payloads and delays those of one process"
+              + ("" if plan is None else
+                 f", {counts['claimed']}/{counts['frames']} frames claimed "
+                 f"once") + f"; rank 0's transfers {moves}")
+    launches = {k: sum(out["launches"][k] for out in ranks) for k in KERNELS}
+    assert all(all(out["launches"][k] > 0 for k in KERNELS)
+               for out in ranks), [out["launches"] for out in ranks]
+    rate, link = ranks[0]["link"]
+    msps = ranks[0]["msps"]
+    pred = analysis.predicted_efficiency(msps, build_geometry(9),
+                                         link_bytes_per_s=rate)
+    print("processes: a rank's own CONFIG_0 shard, its "
+          f"{BATCH // 2} rows (mean of 6): " + "; ".join(
+              f"rank {r} alone {out['shared']['alone']:.2f} ms, both ranks "
+              f"at once {out['shared']['at once']:.2f} ms"
+              for r, out in enumerate(ranks)))
+    print(f"processes: {ranks[0]['describe']}; ranks launched and joined "
+          f"in {t_ranks:.1f} s; peak memory {ranks[0]['peak_bytes'] / 2**30:.3f}"
+          f" / {ranks[1]['peak_bytes'] / 2**30:.3f} GiB (rank 0 / 1); "
+          f"launches {[out['launches'] for out in ranks]}; kernel shapes "
+          f"held in the ranks {ranks[0]['held']} / {ranks[1]['held']}; "
+          f"link rate ({link}, rank 0 -> 1 and back, halved, median of 15) "
+          f"{rate / 1e9:.4f} GB/s; rank 0's unsharded CONFIG_9 receive of "
+          f"BENCH's capture {ranks[0]['t9']:.2f} ms (min of 3) = "
+          f"{msps:.3f} Msamples/s; predicted_efficiency at that rate: "
+          f"{json.dumps(pred)}")
+    bench_under_torchrun()
+    return {"launches": launches, "ranks": ranks}
 
 
 def drive_ts_fir(dev: torch.device) -> None:
@@ -2116,16 +2427,7 @@ def bench_latency(dev: torch.device) -> None:
         lat.append((time.perf_counter() - t0) * 1e3)
     chained = BATCH * buf.shape[1] / bench.receive_rate(rx, buf,
                                                         bench.REPS) * 1e3
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        rx.receive(buf)
-        torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=3)
-    m = re.search(r"Self CUDA time total: ([\d.]+)(s|ms|us)", table)
-    assert m, f"the profiler saw no device time:\n{table}"
-    busy = float(m.group(1)) * {"s": 1e3, "ms": 1.0, "us": 1e-3}[m.group(2)]
+    _res, busy, _wall, _nccl = profile_busy(lambda: rx.receive(buf))
     med = sorted(lat)[len(lat) // 2]
     print(f"BENCH's receive (CONFIG_9, batch {BATCH}, its buffer): each "
           f"between two synchronizes {min(lat):.2f} / {med:.2f} / "
@@ -2365,6 +2667,9 @@ def main() -> int:
     run("time-sharded", drive_time_sharded, dev)
     run("stream form", drive_stream_form, dev)
     run("2-D mesh", drive_mesh_2d, dev)
+    t_proc = time.perf_counter()
+    run("processes", drive_processes, dev)
+    print(f"processes phase: {time.perf_counter() - t_proc:.1f} s")
     run("deep profiles", drive_deep_profiles, dev)
     log.path = "sharded FIR and legacy metrics"
     drive_ts_fir(dev)

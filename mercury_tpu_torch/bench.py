@@ -12,9 +12,15 @@ value, unit and vs_baseline, the backend ("torch-cuda" or "torch-cpu") and
 the device's name, and a "scaling" block: the transfers of a 2-shard
 channel-parallel receive (none), the time-sharded halo per block, the
 predicted 2-device efficiencies at a link rate measured here (one halo
-copied card to card, or within the one card) and the transfer-log audit of
-the double-buffered stream receive. Without a card and without --cpu it
+copied card to card, or within the one card; under a process group, one
+halo from rank 0 to rank 1) and the transfer-log audit of the
+double-buffered stream receive. Without a card and without --cpu it
 exits 1; it never falls back to the CPU.
+
+    torchrun --nproc-per-node 2 -m mercury_tpu_torch.bench
+
+runs it under a process group (scale.dist): rank 0 measures and prints,
+the other ranks only take part in the link rate.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from mercury_tpu_torch.convert import cli_device, describe, resolve_device
 from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.modem.rx import RxChain
 from mercury_tpu_torch.modem.tx import TxChain
-from mercury_tpu_torch.scale import analysis, shard
+from mercury_tpu_torch.scale import analysis, dist, shard
 
 CFG = 9            # QPSK 8/16, mid-ladder workhorse mode
 BATCH = 256
@@ -156,11 +162,16 @@ def audit(device) -> dict:
     return analysis.audit_overlap_structure(run)
 
 
-def link_rate(device, nbytes: int, reps: int = 15) -> tuple[float, str]:
+def link_rate(device, nbytes: int, reps: int = 15,
+              group: dist.Group | None = None) -> tuple[float, str]:
     """Bytes/s of one device-to-device copy of nbytes, the median of reps:
     card 0 to card 1 where there are two cards ("peer"), else within the
     one card ("same card"), timed with CUDA events; on the CPU a copy in
-    host memory on the host clock ("host memory")."""
+    host memory on the host clock ("host memory"). With a process group,
+    every rank calls it: a transfer from rank 0 to rank 1 over the group
+    ("process"; scale.dist.transfer_rate)."""
+    if group is not None:
+        return dist.transfer_rate(group, device, nbytes, reps), "process"
     n = max(nbytes // 4, 1)
     if device.type != "cuda":
         src, dst = torch.zeros(n), torch.empty(n)
@@ -188,12 +199,19 @@ def link_rate(device, nbytes: int, reps: int = 15) -> tuple[float, str]:
     return 4 * n / statistics.median(times), "peer" if peer else "same card"
 
 
+def halo_bytes(g) -> int:
+    """The time-sharded receive's bytes a shard receives per block."""
+    return analysis.collective_account(g)["time_sharded_rx"][
+        "halo_bytes_per_shard_block"]
+
+
 def scaling(device, msamples_per_s: float, rx: RxChain,
-            buf: torch.Tensor) -> dict:
+            buf: torch.Tensor, group: dist.Group | None = None) -> dict:
     """bench.py's "scaling" block from this machine: the transfers of a
     2-shard channel_parallel_receive of buf's first two rows (none is
     allowed), the analytic time-sharded halo, the predicted efficiencies
-    at a link rate measured here, and the overlap audit."""
+    at a link rate measured here (between processes with a group), and
+    the overlap audit."""
     mesh = shard.make_mesh(2, devices=[device] * 2)
     run_cp = shard.channel_parallel_receive(rx, mesh)
     run_cp(buf[:2])
@@ -201,9 +219,7 @@ def scaling(device, msamples_per_s: float, rx: RxChain,
     if moved:
         raise RuntimeError(f"channel-parallel receive moved data: {moved}")
     g = rx.geom
-    halo = analysis.collective_account(g)["time_sharded_rx"][
-        "halo_bytes_per_shard_block"]
-    rate, link = link_rate(device, halo)
+    rate, link = link_rate(device, halo_bytes(g), group=group)
     pred = analysis.predicted_efficiency(msamples_per_s, g,
                                          link_bytes_per_s=rate)
     rep = audit(device)
@@ -233,7 +249,10 @@ def scaling(device, msamples_per_s: float, rx: RxChain,
 
 def main(argv=None, *, batch: int = BATCH, reps: int = REPS) -> int:
     """Print the benchmark's JSON line; 1 without a card and --cpu.
-    batch and reps are for tests; the command line keeps the defaults."""
+    batch and reps are for tests; the command line keeps the defaults.
+    Started as a rank (torchrun), it brings up the process group on its
+    rank's card (scale.dist.init; the CPU with --cpu) and names the
+    group's backend on stderr."""
     ap = argparse.ArgumentParser(prog="mercury_tpu_torch.bench",
                                  description=__doc__)
     ap.add_argument("--cpu", action="store_true",
@@ -242,19 +261,33 @@ def main(argv=None, *, batch: int = BATCH, reps: int = REPS) -> int:
     device = cli_device(args.cpu)
     if device is None:
         return 1
-    w = worker(device, batch, reps)
-    sps = w["samples_per_s"]
-    print(json.dumps({
-        "metric": METRIC,
-        "value": sps / 1e6,
-        "unit": "Msamples/s",
-        "vs_baseline": sps / REFERENCE_CPU_SAMPLES_PER_S,
-        "platform": "gpu" if device.type == "cuda" else "cpu",
-        **describe(device),
-        "warmup_decoded": w["decoded"],
-        "scaling": scaling(device, sps / 1e6, w["rx"], w["buf"]),
-    }))
-    return 0
+    group = None
+    if dist.launched():
+        group = dist.init(devices=["cpu"] if args.cpu else None)
+        device = group.devices[0]
+        # one write, so that the ranks' lines do not interleave
+        sys.stderr.write(group.describe() + "\n")
+        sys.stderr.flush()
+    try:
+        if group is not None and group.rank != 0:
+            link_rate(device, halo_bytes(build_geometry(CFG)), group=group)
+            return 0
+        w = worker(device, batch, reps)
+        sps = w["samples_per_s"]
+        print(json.dumps({
+            "metric": METRIC,
+            "value": sps / 1e6,
+            "unit": "Msamples/s",
+            "vs_baseline": sps / REFERENCE_CPU_SAMPLES_PER_S,
+            "platform": "gpu" if device.type == "cuda" else "cpu",
+            **describe(device),
+            "warmup_decoded": w["decoded"],
+            "scaling": scaling(device, sps / 1e6, w["rx"], w["buf"], group),
+        }))
+        return 0
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

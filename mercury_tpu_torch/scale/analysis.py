@@ -9,11 +9,16 @@ program's transfer log instead (scale.shard: every copy between shards,
 with its kind, bytes, source, destination, block and order of issue,
 beside the schedule's "wait", "decode" and "decoded" events):
 
-- logged_transfers: the count of each kind (the JAX hlo_collectives);
-  channel-parallel makes none;
+- logged_transfers: the count of each kind (the JAX hlo_collectives),
+  those between processes apart; channel-parallel makes none;
 - audit_overlap_structure: whether each halo of a block k+1 was issued
   before block k decoded and consumed only after it (the double buffer of
   time_sharded_receive_stream);
+
+Over processes each rank keeps its own log: the transfers its shards send
+and receive (a transfer between two ranks is in both logs, with the two
+ranks and whether it went through host memory) and one "gather" entry a
+call.
 - scaling_structure_table: per mesh size, the channel-parallel transfers
   and the time-sharded bytes a shard receives per block against the
   account.
@@ -102,11 +107,15 @@ def _log(program_or_log) -> list[dict]:
 
 def logged_transfers(program_or_log) -> dict[str, int]:
     """The count of each kind of transfer between shards in a sharded
-    program's last call (or a log): {} for channel-parallel."""
+    program's last call (or a log): {} for channel-parallel. A transfer
+    between shards of two processes counts under "<kind> across
+    processes"; the gather is not a transfer between shards."""
     counts: dict[str, int] = {}
     for e in _log(program_or_log):
-        if "bytes" in e:
-            counts[e["kind"]] = counts.get(e["kind"], 0) + 1
+        if "src" in e:
+            kind = e["kind"] + (" across processes" if "src_rank" in e
+                                else "")
+            counts[kind] = counts.get(kind, 0) + 1
     return counts
 
 
@@ -117,7 +126,9 @@ def audit_overlap_structure(program_or_log) -> dict:
     the transfer starts only once that decode has been issued: its block is
     in blocking_upstream), and some decode must be issued between the
     transfer and the "wait" that consumes it (else the decode that reads it
-    waits for the transfer: blocking_downstream).
+    waits for the transfer: blocking_downstream). A halo this process sends
+    to another is waited on in that process's log: here only its issue is
+    checked.
 
     Returns {"overlap_scheduled": bool, "halo_bytes" (the largest halo),
     "halos_past_first_block", "transfers" (logged_transfers),
@@ -138,6 +149,8 @@ def audit_overlap_structure(program_or_log) -> dict:
         k = e["block"]
         if e["seq"] > decodes.get(k - 1, -1):
             up.add(k)
+        if "dst_rank" in e and (k, e["dst"]) not in waits:
+            continue
         wait = waits.get((k, e["dst"]), e["seq"])
         if not any(e["seq"] < d < wait for d in decodes.values()):
             down.add(k)

@@ -34,6 +34,20 @@ reads the log where the JAX package reads the compiled HLO.
 The returned programs gather their outputs onto the first shard's device,
 as reading a sharded jax.Array gathers it; that gather is not an exchange
 between shards and is not logged.
+
+A mesh may span processes (make_mesh/make_mesh_2d with a scale.dist
+group, one process a host, as JAX's multi-controller runtime): each entry
+then has the rank that drives it, the inner axis of a 2-D mesh stays
+within one rank and the outer one runs across ranks, as JAX's hybrid
+layout lays it over slices. The programs are called alike on every rank
+with the whole batch; each rank moves only its own slices to its devices
+and builds and drives only its own shards, in the mesh's order. A
+transfer between shards of two ranks is an isend/irecv pair over the
+group (posted on both sides in the same order, the mesh's), logged on
+both ranks with the two ranks and whether it was staged through host
+memory; the gather is an all_gather over the group, so that every rank
+returns the whole result in mesh order, and is logged as one "gather"
+entry with the bytes this rank put in.
 """
 
 from __future__ import annotations
@@ -47,24 +61,45 @@ import torch
 
 from mercury_tpu_torch.dsp import ops
 from mercury_tpu_torch.modem.rx import RxChain, RxResult
+from mercury_tpu_torch.scale import dist
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """devices: a numpy object array of torch.device, one axis per name."""
+    """devices: a numpy object array of torch.device, one axis per name;
+    ranks: the process that drives each entry (int, the devices' shape;
+    all 0 in one process); group: the scale.dist group of a mesh over
+    processes (None: this process alone)."""
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    ranks: np.ndarray | None = None
+    group: dist.Group | None = None
+
+    def __post_init__(self):
+        if self.ranks is None:
+            object.__setattr__(self, "ranks",
+                               np.zeros(self.devices.shape, dtype=np.int64))
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    @property
+    def rank(self) -> int:
+        """This process's rank in the mesh's group (0 in one process)."""
+        return 0 if self.group is None else self.group.rank
+
+    def _along(self, arr: np.ndarray, axis: str, index: int) -> list:
+        a = self.axis_names.index(axis)
+        return list(np.moveaxis(arr, a, -1).reshape(-1, arr.shape[a])[index])
+
     def axis_devices(self, axis: str, index: int = 0) -> list[torch.device]:
         """The devices along `axis`, at `index` of the other axis (if any)."""
-        a = self.axis_names.index(axis)
-        arr = np.moveaxis(self.devices, a, -1).reshape(
-            -1, self.devices.shape[a])
-        return list(arr[index])
+        return self._along(self.devices, axis, index)
+
+    def axis_ranks(self, axis: str, index: int = 0) -> list[int]:
+        """The ranks driving the entries of axis_devices(axis, index)."""
+        return [int(r) for r in self._along(self.ranks, axis, index)]
 
 
 def _device_list(n: int | None, devices) -> list[torch.device]:
@@ -89,55 +124,102 @@ def _device_list(n: int | None, devices) -> list[torch.device]:
     return devices[:n]
 
 
-def _mesh(devs: list[torch.device], shape, axes) -> Mesh:
+def _over_ranks(n: int, devices, group: dist.Group) -> tuple[list, list]:
+    """n entries, n / world_size from each rank in rank order: this rank's
+    first ones of `devices` (its group's devices by default), gathered over
+    the group. -> (devices, ranks). ValueError on every rank (before any
+    rank waits on another) if n does not divide over the ranks or a rank
+    has too few devices."""
+    if n % group.world_size:
+        raise ValueError(f"a mesh of {n} does not divide over "
+                         f"{group.world_size} processes")
+    k = n // group.world_size
+    local = _device_list(None, group.devices if devices is None
+                         else devices)
+    every = [None] * group.world_size
+    torch.distributed.all_gather_object(every, [str(d) for d in local])
+    short = [r for r, devs in enumerate(every) if len(devs) < k]
+    if short:
+        raise ValueError(f"a mesh of {n} over {group.world_size} processes "
+                         f"needs {k} devices a process; process {short[0]} "
+                         f"has {len(every[short[0]])}")
+    return ([torch.device(d) for devs in every for d in devs[:k]],
+            [r for r in range(group.world_size) for _ in range(k)])
+
+
+def _mesh(devs: list[torch.device], shape, axes, ranks=None,
+          group=None) -> Mesh:
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
-    return Mesh(arr.reshape(shape), tuple(axes))
+    if ranks is not None:
+        ranks = np.asarray(ranks, dtype=np.int64).reshape(shape)
+    return Mesh(arr.reshape(shape), tuple(axes), ranks, group)
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "ch",
-              devices=None) -> Mesh:
+              devices=None, group: dist.Group | None = None) -> Mesh:
     """A 1-D mesh of the first n_devices CUDA cards (all of them by
     default; ValueError if there are fewer), or of the first n_devices of
-    `devices`, which may repeat a device (a virtual mesh)."""
-    devs = _device_list(n_devices, devices)
-    return _mesh(devs, (len(devs),), (axis,))
+    `devices`, which may repeat a device (a virtual mesh). With a group:
+    n_devices / world_size entries from each rank, in rank order, from
+    its `devices` (the group's by default); the axis runs across ranks
+    (the time axis over two hosts, whose halos then cross processes)."""
+    if group is None:
+        devs = _device_list(n_devices, devices)
+        return _mesh(devs, (len(devs),), (axis,))
+    devs, ranks = _over_ranks(n_devices, devices, group)
+    return _mesh(devs, (n_devices,), (axis,), ranks, group)
 
 
 def make_mesh_2d(n_outer: int, n_inner: int,
-                 axes: tuple[str, str] = ("dcn", "ch"), devices=None) -> Mesh:
+                 axes: tuple[str, str] = ("dcn", "ch"), devices=None,
+                 group: dist.Group | None = None) -> Mesh:
     """A [n_outer, n_inner] mesh of the first n_outer * n_inner cards (or
     of `devices`), the outer axis across groups of independent streams and
-    the inner one within a group. One process has no hosts to lay the outer
-    axis across; JAX's multi-slice layout has no counterpart here."""
-    devs = _device_list(n_outer * n_inner, devices)
-    return _mesh(devs, (n_outer, n_inner), axes)
+    the inner one within a group. With a group, as JAX's hybrid layout
+    over slices: the outer axis runs across ranks, n_outer / world_size
+    rows a rank (ValueError unless that divides), and each row's n_inner
+    devices are one rank's (its `devices`, the group's by default)."""
+    if group is None:
+        devs = _device_list(n_outer * n_inner, devices)
+        return _mesh(devs, (n_outer, n_inner), axes)
+    if n_outer % group.world_size:
+        raise ValueError(f"the outer axis of {n_outer} does not divide "
+                         f"over {group.world_size} processes")
+    devs, ranks = _over_ranks(n_outer * n_inner, devices, group)
+    return _mesh(devs, (n_outer, n_inner), axes, ranks, group)
 
 
 def shard_batch(mesh: Mesh, x, axis: str = "ch",
                 dim: int = 0) -> list[torch.Tensor]:
     """Split x along `dim` into mesh.shape[axis] equal shards, shard i on
     the i-th device along `axis` (at index 0 of a 2-D mesh's other
-    axis)."""
+    axis); None for a shard another rank drives."""
     devs = mesh.axis_devices(axis)
     x = torch.as_tensor(x)
     if x.shape[dim] % len(devs):
         raise ValueError(f"dimension {dim} of size {x.shape[dim]} does not "
                          f"split over {len(devs)} shards")
-    return [p.to(d) for p, d in zip(torch.chunk(x, len(devs), dim), devs)]
+    return [p.to(d) if r == mesh.rank else None
+            for p, d, r in zip(torch.chunk(x, len(devs), dim), devs,
+                               mesh.axis_ranks(axis))]
 
 
 class _Shard:
-    """One shard: its device, its chain (a replica of the caller's) and, on
-    a card, its own stream."""
+    """One shard: its device, the rank that drives it, and where that is
+    this process, its chain (a replica of the caller's) and, on a card,
+    its own stream."""
 
     def __init__(self, chain: RxChain | None, device: torch.device,
-                 label: str):
+                 label: str, rank: int = 0, local: bool = True):
         self.device = device
         self.label = label
-        self.rx = None if chain is None else chain.replica(device)
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        self.rank = rank
+        self.local = local
+        self.rx = (None if chain is None or not local
+                   else chain.replica(device))
+        self.stream = (torch.cuda.Stream(device)
+                       if local and device.type == "cuda" else None)
 
     @contextlib.contextmanager
     def on(self):
@@ -166,18 +248,43 @@ def _current(device: torch.device):
             else None)
 
 
-class _Programs:
-    """What the sharded programs share: their shards, the copy streams
-    (one per card) and the log of transfers and schedule events."""
+def _fields(res: RxResult) -> dict[str, torch.Tensor]:
+    return {f.name: getattr(res, f.name) for f in dataclasses.fields(RxResult)}
 
-    def __init__(self, chain: RxChain | None, devices, labels):
-        self.shards = [_Shard(chain, d, lab) for d, lab in zip(devices,
-                                                              labels)]
+
+class _Programs:
+    """What the sharded programs share: their shards (those of other ranks
+    as placeholders), the copy streams (one per card of this rank), the
+    process group and the log of transfers and schedule events."""
+
+    def __init__(self, chain: RxChain | None, mesh: Mesh, devices, ranks,
+                 labels):
+        """A shard for each of the devices of mesh (with its rank and
+        label), in the program's order. ValueError, on every rank alike,
+        where a rank of the mesh drives none of them (a program over one
+        axis of a 2-D mesh whose other axis runs across the ranks)."""
+        idle = sorted(set(mesh.ranks.flat) - set(ranks))
+        if idle:
+            raise ValueError(
+                f"the program's shards {list(labels)} hold none of process "
+                f"{idle[0]}'s devices: over processes, lay the program's "
+                "axis across them or give it every axis of the mesh")
+        self.group = mesh.group
+        self.shards = [_Shard(chain, d, lab, r, r == mesh.rank)
+                       for d, lab, r in zip(devices, labels, ranks)]
         self.copy_streams = {}
         for sh in self.shards:
             if sh.stream is not None and sh.device not in self.copy_streams:
                 self.copy_streams[sh.device] = torch.cuda.Stream(sh.device)
+        self.out_dev = next(sh.device for sh in self.shards if sh.local)
         self.log: list[dict] = []
+        self._tag = 0
+        self._sent = []
+
+    def begin(self) -> None:
+        """A new call: its log and the tags of its transfers start anew."""
+        self.log.clear()
+        self._tag = 0
 
     def note(self, kind: str, **entry) -> None:
         self.log.append({"seq": len(self.log), "kind": kind, **entry})
@@ -185,10 +292,30 @@ class _Programs:
     def send(self, t: torch.Tensor, src: _Shard, dst: _Shard, kind: str,
              block: int, src_stream):
         """Copy t (made on src_stream, on src's device) into a fresh tensor
-        on dst's device, on the copy stream, behind an event; log it.
-        -> (the copy, the event that marks it done, None on the CPU)."""
-        self.note(kind, bytes=t.numel() * t.element_size(), src=src.label,
-                  dst=dst.label, block=block)
+        on dst's device, on the copy stream, behind an event; log it. Where
+        src is another rank's, t is a tensor of its shape and dtype on the
+        "meta" device. Every rank calls this for every transfer of the
+        program, in the same order; a rank that drives neither shard does
+        nothing. -> what receive_on takes on dst (None where dst is
+        another rank's)."""
+        self._tag += 1
+        if not (src.local or dst.local):
+            return None
+        entry = {"bytes": t.numel() * t.element_size(), "src": src.label,
+                 "dst": dst.label, "block": block}
+        if src.rank != dst.rank:
+            staged = self.group.staged(src.device, dst.device)
+            self.note(kind, **entry, src_rank=src.rank, dst_rank=dst.rank,
+                      staged=staged)
+            with torch.profiler.record_function(f"mercury::{kind}"):
+                if src.local:
+                    self._sent.append(dist.post_send(
+                        self.group, t, dst.rank, self._tag, src_stream))
+                    return None
+                return dist.Received(self.group, t.shape, t.dtype, src.rank,
+                                     self._tag, dst.device,
+                                     self.copy_streams.get(dst.device))
+        self.note(kind, **entry)
         if dst.stream is None:
             return t.to(dst.device, copy=True), None
         cs_src = self.copy_streams[src.device]
@@ -203,28 +330,59 @@ class _Programs:
             done = cs_dst.record_event()
         return out, done
 
-    def receive_on(self, dst: _Shard, t: torch.Tensor, done) -> None:
-        """A sent tensor becomes usable on dst's stream."""
+    def receive_on(self, dst: _Shard, sent) -> torch.Tensor:
+        """What send gave dst becomes usable on dst's stream (a receive from
+        another rank is waited for first). -> the tensor."""
+        t, done = sent.wait() if isinstance(sent, dist.Received) else sent
         if done is not None:
             dst.stream.wait_event(done)
             t.record_stream(dst.stream)
+        return t
 
-    def gather(self, results: list[RxResult], stack: bool) -> RxResult:
-        """Per-shard results (on their shards' streams) -> one RxResult on
-        the first shard's device: fields stacked on a new leading axis, or
-        concatenated along the batch."""
-        out_dev = self.shards[0].device
-        fields = {}
-        for f in dataclasses.fields(RxResult):
-            parts = []
-            for sh, res in results:
-                t = getattr(res, f.name)
-                cur = _current(sh.device)
+    def finish(self) -> None:
+        """Wait for this call's sends to other ranks."""
+        for work, _keep in self._sent:
+            work.wait()
+        self._sent.clear()
+
+    def gather(self, parts: dict, blocks: int = 1) -> dict:
+        """{(block, shard index): (shard, {name: tensor})} of the shards this
+        rank drives (made on their streams) -> the same for every shard of
+        the program and block < blocks, on out_dev: across ranks through
+        one all_gather over the group, its bytes logged as one "gather"
+        entry."""
+        out = {}
+        for key, (sh, fields) in parts.items():
+            cur = _current(sh.device)
+            for t in fields.values():
                 _handover([t], sh.stream, cur)
-                parts.append(t.to(out_dev))
-            fields[f.name] = (torch.stack(parts) if stack
-                              else torch.cat(parts))
-        return RxResult(**fields)
+            out[key] = {name: t.to(self.out_dev)
+                        for name, t in fields.items()}
+        if self.group is None:
+            return out
+        mine = sorted(out)
+        flat = torch.cat([out[k][name].reshape(-1).view(torch.uint8)
+                          for k in mine for name in out[k]])
+        self.note("gather", bytes=flat.numel(), ranks=self.group.world_size,
+                  staged=self.group.staged(self.out_dev))
+        every = dist.all_gather_bytes(self.group, flat)
+        # every rank drives as many shards, each part's the shapes of ours
+        like = out[mine[0]]
+        for r, buf in enumerate(every):
+            if r == self.group.rank:
+                continue
+            keys = sorted((kk, s) for kk in range(blocks)
+                          for s, sh in enumerate(self.shards) if sh.rank == r)
+            at = 0
+            for key in keys:
+                got = {}
+                for name, t in like.items():
+                    n = t.numel() * t.element_size()
+                    got[name] = buf[at: at + n].clone().view(
+                        t.dtype).reshape(t.shape)
+                    at += n
+                out[key] = got
+        return out
 
 
 def channel_parallel_receive(rx_chain: RxChain, mesh: Mesh,
@@ -232,23 +390,32 @@ def channel_parallel_receive(rx_chain: RxChain, mesh: Mesh,
     """RxChain.receive over the channel axis: each shard's rows go through
     an unmodified receive of its own chain on its device and, on a card,
     its own stream, the shards in turn, with no bytes moved
-    between shards (the program's log stays empty). -> f(pb) where pb is
-    [B, n] (split with shard_batch) or a list of per-shard buffers ->
-    RxResult [B, ...] on the first shard's device."""
+    between shards (the program's log holds no transfer; over ranks, its
+    gather). -> f(pb) where pb is [B, n] (split with shard_batch) or a
+    list of per-shard buffers -> RxResult [B, ...] on the first shard's
+    device (of this rank's shards)."""
     devs = mesh.axis_devices(axis)
-    prog = _Programs(rx_chain, devs, [f"{axis}{i}" for i in range(len(devs))])
+    prog = _Programs(rx_chain, mesh, devs, mesh.axis_ranks(axis),
+                     [f"{axis}{i}" for i in range(len(devs))])
 
     def run(pb) -> RxResult:
+        prog.begin()
         parts = (list(pb) if isinstance(pb, (list, tuple))
                  else shard_batch(mesh, pb, axis))
-        for sh, x in zip(prog.shards, parts):
+        mine = [(s, sh, x) for s, (sh, x) in enumerate(zip(prog.shards,
+                                                           parts))
+                if sh.local]
+        for _s, sh, x in mine:
             _handover([x], _current(x.device), sh.stream)
 
-        results = []
-        for sh, x in zip(prog.shards, parts):
+        results = {}
+        for s, sh, x in mine:
             with sh.on():
-                results.append((sh, sh.rx.receive(x)))
-        return prog.gather(results, stack=False)
+                results[0, s] = (sh, _fields(sh.rx.receive(x)))
+        out = prog.gather(results)
+        return RxResult(**{f.name: torch.cat([out[0, s][f.name]
+                                              for s in range(len(devs))])
+                           for f in dataclasses.fields(RxResult)})
 
     run.log = prog.log
     run.shards = prog.shards
@@ -301,28 +468,34 @@ def spmd_overhead_curve(rx_chain: RxChain, device_counts=(1, 2, 4, 8),
     return out
 
 
-def halo_exchange(parts: list[torch.Tensor], left: int, right: int,
-                  prog: _Programs) -> list[torch.Tensor]:
+def halo_exchange(parts: list, left: int, right: int,
+                  prog: _Programs) -> list:
     """Overlap-save halos of the shards' slices [..., n_local] in time
     order: each gets `left` samples of its left neighbour's tail before it
     and `right` of its right neighbour's head after it, zeros at the stream
     edges -> [..., left + n_local + right] per shard, on each shard's
     stream. prog holds the shards (one per part, in time order; JAX's axis
-    name) and the log."""
+    name) and the log. A part is None where another rank drives its shard
+    (and so is its result); halos to and from it cross processes."""
     n = len(parts)
-    src = [_current(p.device) for p in parts]
+    like = next(p for p in parts if p is not None)
+    src = [None if p is None else _current(p.device) for p in parts]
     for sh, x, s in zip(prog.shards, parts, src):
-        _handover([x], s, sh.stream)
+        if x is not None:
+            _handover([x], s, sh.stream)
 
-    def piece(j: int, nb: int, cut: slice, width: int) -> torch.Tensor:
+    def piece(j: int, nb: int, cut: slice, width: int):
         """Shard j's halo from shard nb's samples at cut (zeros past an
-        edge)."""
+        edge); None where j is another rank's."""
         sh = prog.shards[j]
         if 0 <= nb < n:
-            t, done = prog.send(parts[nb][..., cut].contiguous(),
-                                prog.shards[nb], sh, "halo", 0, src[nb])
-            prog.receive_on(sh, t, done)
-            return t
+            t = (parts[nb][..., cut].contiguous() if parts[nb] is not None
+                 else torch.empty(like.shape[:-1] + (width,),
+                                  dtype=like.dtype, device="meta"))
+            sent = prog.send(t, prog.shards[nb], sh, "halo", 0, src[nb])
+            return prog.receive_on(sh, sent) if sh.local else None
+        if not sh.local:
+            return None
         with sh.on():
             return parts[j].new_zeros(parts[j].shape[:-1] + (width,))
 
@@ -333,6 +506,9 @@ def halo_exchange(parts: list[torch.Tensor], left: int, right: int,
             pieces.insert(0, piece(j, j - 1, slice(-left, None), left))
         if right:
             pieces.append(piece(j, j + 1, slice(0, right), right))
+        if not sh.local:
+            out.append(None)
+            continue
         with sh.on():
             out.append(torch.cat(pieces, dim=-1))
     return out
@@ -348,23 +524,30 @@ def time_sharded_fir(mesh: Mesh, taps, time_axis: str = "t"):
     ntaps = taps.shape[0]
     left = (ntaps - 1) // 2
     right = ntaps - 1 - left
-    devs = mesh.axis_devices(time_axis)
-    prog = _Programs(None, devs, [f"{time_axis}{i}" for i in range(len(devs))])
-    taps_on = {d: taps.to(d) for d in set(devs)}
+    n_dev = mesh.shape[time_axis]
+    prog = _Programs(None, mesh, mesh.axis_devices(time_axis),
+                     mesh.axis_ranks(time_axis),
+                     [f"{time_axis}{i}" for i in range(n_dev)])
+    taps_on = {sh.device: taps.to(sh.device) for sh in prog.shards
+               if sh.local}
 
     def run(x) -> torch.Tensor:
-        prog.log.clear()
+        prog.begin()
+        x = torch.as_tensor(x)
         parts = shard_batch(mesh, x, time_axis, dim=-1)
-        n_local = parts[0].shape[-1]
+        n_local = x.shape[-1] // n_dev
         ext = halo_exchange(parts, left, right, prog)
-        outs = []
-        for sh, e in zip(prog.shards, ext):
+        outs = {}
+        for s, (sh, e) in enumerate(zip(prog.shards, ext)):
+            if e is None:
+                continue
             with sh.on():
                 y = ops.fir_same(e, taps_on[sh.device])
                 y = y[..., left: left + n_local]
-            _handover([y], sh.stream, _current(sh.device))
-            outs.append(y.to(prog.shards[0].device))
-        return torch.cat(outs, dim=-1)
+            outs[0, s] = (sh, {"y": y})
+        prog.finish()
+        got = prog.gather(outs)
+        return torch.cat([got[0, s]["y"] for s in range(n_dev)], dim=-1)
 
     run.log = prog.log
     return run
@@ -384,7 +567,20 @@ def _halo_len(rx_chain: RxChain, halo: int | None) -> tuple[int, int]:
 class _TimeSharded:
     """The block-pipelined time-sharded receive over groups of shards (one
     group per index of batch_axis; a group time-shards its rows of the
-    stream batch over time_axis). See time_sharded_receive_stream."""
+    stream batch over time_axis). See time_sharded_receive_stream.
+
+    Over ranks, every rank walks the same schedule, each transfer of the
+    program in its place, and drives only its own shards in it:
+      fetch(0): block 0's halos (each group, each shard, in order);
+      step k: wait for block k's halos bound here, in order; fetch(k + 1),
+        posted before block k decodes; decode block k; post block k's
+        dedupe rows (shard j - 1 -> j, and the last shard of block k - 1
+        -> shard 0; each group, each shard, in order), then wait for those
+        bound here;
+      then wait for the call's sends, and the gather.
+    Posts do not block, and a rank waits only for a transfer that its peer
+    posts before it waits on anything posted later, so no order of the
+    ranks deadlocks."""
 
     def __init__(self, rx_chain: RxChain, mesh: Mesh, time_axis: str,
                  halo: int | None, batch_axis: str | None):
@@ -396,17 +592,19 @@ class _TimeSharded:
         self.groups = [mesh.axis_devices(time_axis, gi)
                        for gi in range(n_groups)]
         devs = [d for grp in self.groups for d in grp]
+        ranks = [r for gi in range(n_groups)
+                 for r in mesh.axis_ranks(time_axis, gi)]
         labels = [f"{batch_axis}{gi}.{time_axis}{j}" if batch_axis
                   else f"{time_axis}{j}"
                   for gi, grp in enumerate(self.groups)
                   for j in range(len(grp))]
-        self.prog = _Programs(rx_chain, devs, labels)
+        self.prog = _Programs(rx_chain, mesh, devs, ranks, labels)
         self.log = self.prog.log
 
     def __call__(self, pb) -> RxResult:
         """pb [B, K, n_total] -> RxResult [K, n_dev, B]."""
         prog = self.prog
-        prog.log.clear()
+        prog.begin()
         pb = torch.as_tensor(pb)
         b, k_blocks, n_total = pb.shape
         n_dev, n_groups = len(self.groups[0]), len(self.groups)
@@ -419,11 +617,13 @@ class _TimeSharded:
             raise ValueError(f"halo {self.halo} exceeds the slice {n_local}")
         shards = [prog.shards[gi * n_dev: (gi + 1) * n_dev]
                   for gi in range(n_groups)]
-        # each shard's slices [Bg, K, n_local] and, for sending, their
-        # heads [K, Bg, halo], made on the shard's stream
+        # each of this rank's shards' slices [Bg, K, n_local] and, for
+        # sending, their heads [K, Bg, halo], made on the shard's stream
         blocks, heads = {}, {}
         for gi in range(n_groups):
             for j, sh in enumerate(shards[gi]):
+                if not sh.local:
+                    continue
                 x = pb[gi * bg: (gi + 1) * bg, :,
                        j * n_local: (j + 1) * n_local].to(sh.device)
                 _handover([x], _current(sh.device), sh.stream)
@@ -431,12 +631,15 @@ class _TimeSharded:
                     blocks[gi, j] = x.contiguous()
                     heads[gi, j] = blocks[gi, j][:, :, :self.halo].transpose(
                         0, 1).contiguous()
+        head_like = torch.empty((bg, self.halo), dtype=pb.dtype,
+                                device="meta")
 
         def fetch(kk):
             """Issue the halos of block kk: shard j's from shard j+1's head
             of block kk, the last shard's from shard 0's head of block
-            kk+1 (zeros past the last block). -> {(group, shard): (halo,
-            its copy's event or None, whether it was sent)}."""
+            kk+1 (zeros past the last block). -> {(group, shard): (what
+            receive_on takes, whether it was sent)} for this rank's
+            shards."""
             got = {}
             for gi in range(n_groups):
                 for j, sh in enumerate(shards[gi]):
@@ -444,14 +647,15 @@ class _TimeSharded:
                                     else (0, kk + 1))
                     if src_k < k_blocks:
                         src = shards[gi][src_j]
-                        got[gi, j] = (*prog.send(heads[gi, src_j][src_k],
-                                                 src, sh, "halo", kk,
-                                                 src.stream), True)
-                    else:
+                        t = heads[gi, src_j][src_k] if src.local else head_like
+                        sent = prog.send(t, src, sh, "halo", kk, src.stream)
+                        if sh.local:
+                            got[gi, j] = (sent, True)
+                    elif sh.local:
                         with sh.on():
-                            got[gi, j] = (torch.zeros(
+                            got[gi, j] = ((torch.zeros(
                                 (bg, self.halo), dtype=pb.dtype,
-                                device=sh.device), None, False)
+                                device=sh.device), None), False)
             return got
 
         def decode(gi, j, kk, halo_t):
@@ -464,67 +668,77 @@ class _TimeSharded:
             return res, claim, gd
 
         halos = fetch(0)
-        outs = []
+        outs = {}
         left = {}          # (group) -> the last shard's raw claim of block k-1
         for kk in range(k_blocks):
-            for (gi, j), (t, done, sent) in halos.items():
-                if sent:
+            ready = {}
+            for (gi, j), (sent, was_sent) in halos.items():
+                if was_sent:
                     prog.note("wait", dst=shards[gi][j].label, block=kk)
-                prog.receive_on(shards[gi][j], t, done)
+                ready[gi, j] = prog.receive_on(shards[gi][j], sent)
             # double buffer: block kk+1's halos go out before block kk
             # decodes, and block kk does not read them
             nxt = fetch(kk + 1) if kk + 1 < k_blocks else None
             prog.note("decode", block=kk)
-            dec = {key: decode(*key, kk, halos[key][0]) for key in halos}
+            dec = {key: decode(*key, kk, ready[key]) for key in ready}
             prog.note("decoded", block=kk)
-            outs.append(self._dedupe(shards, dec, left, kk, bg))
+            outs.update(self._dedupe(shards, dec, left, kk, bg))
             halos = nxt
-        # [K][group][shard] -> fields [K, n_dev, B]
-        per_block = []
-        for kk in range(k_blocks):
-            rows = [prog.gather([outs[kk][gi][j] for gi in range(n_groups)],
-                                stack=False) for j in range(n_dev)]
-            per_block.append(rows)
+        prog.finish()
+        got = prog.gather(outs, k_blocks)
+        # fields [K, n_dev, B]: each block's shards along time, each the
+        # groups' rows in turn
         return RxResult(**{
-            f.name: torch.stack([torch.stack([getattr(r, f.name)
-                                              for r in rows])
-                                 for rows in per_block])
+            f.name: torch.stack([torch.stack([
+                torch.cat([got[kk, gi * n_dev + j][f.name]
+                           for gi in range(n_groups)])
+                for j in range(n_dev)]) for kk in range(k_blocks)])
             for f in dataclasses.fields(RxResult)})
 
-    def _dedupe(self, shards, dec, left, kk, bg):
+    def _dedupe(self, shards, dec, left, kk, bg) -> dict:
         """Seam dedupe of block kk: shard j drops a claim within one symbol
         of its left neighbour's (shard j-1's raw claim; for shard 0 the last
-        shard's of block kk-1). -> [group][shard] of (shard, RxResult) with
-        the claims and global delays."""
+        shard's of block kk-1). Every dedupe row is posted, then those bound
+        for this rank's shards are read. -> {(kk, shard index): (shard,
+        fields)} of this rank's shards, with the claims and global
+        delays."""
         prog = self.prog
         n_dev = len(shards[0])
-        out = []
+        pair_like = torch.empty((2, bg), dtype=torch.int32, device="meta")
+        sent = {}
         for gi in range(len(shards)):
-            row = []
             for j, sh in enumerate(shards[gi]):
-                res, claim, gd = dec[gi, j]
                 if j > 0:
                     src_sh = shards[gi][j - 1]
-                    with src_sh.on():
-                        pair = self._claims(dec[gi, j - 1])
-                elif gi in left:
-                    src_sh, pair = shards[gi][-1], left[gi]
+                    pair = pair_like
+                    if src_sh.local:
+                        with src_sh.on():
+                            pair = self._claims(dec[gi, j - 1])
+                elif kk > 0:
+                    src_sh = shards[gi][-1]
+                    pair = left[gi] if src_sh.local else pair_like
                 else:
-                    src_sh = None
-                if src_sh is not None:
-                    t, done = prog.send(pair, src_sh, sh, "dedupe", kk,
-                                        src_sh.stream)
-                    prog.receive_on(sh, t, done)
+                    continue
+                got = prog.send(pair, src_sh, sh, "dedupe", kk, src_sh.stream)
+                if sh.local:
+                    sent[gi, j] = got
+            if shards[gi][-1].local:
+                with shards[gi][-1].on():
+                    left[gi] = self._claims(dec[gi, n_dev - 1])
+        out = {}
+        for gi in range(len(shards)):
+            for j, sh in enumerate(shards[gi]):
+                if not sh.local:
+                    continue
+                res, claim, gd = dec[gi, j]
+                if (gi, j) in sent:
+                    t = prog.receive_on(sh, sent[gi, j])
                     with sh.on():
                         dup = (t[0] > 0) & (torch.abs(t[1] - gd) < self.sym)
                         claim = claim & ~dup
-                row.append((sh, RxResult(res.payload, claim, gd,
-                                         res.freq_offset, res.snr_db,
-                                         res.iters, res.sync_metric,
-                                         res.mean_h)))
-            with shards[gi][-1].on():
-                left[gi] = self._claims(dec[gi, n_dev - 1])
-            out.append(row)
+                out[kk, gi * n_dev + j] = (sh, _fields(RxResult(
+                    res.payload, claim, gd, res.freq_offset, res.snr_db,
+                    res.iters, res.sync_metric, res.mean_h)))
         return out
 
     @staticmethod
@@ -547,7 +761,8 @@ def time_sharded_receive(rx_chain: RxChain, mesh: Mesh,
     A slice holds at most one frame start. batch_axis: on a 2-D mesh the
     stream batch is split over this axis, each group time-sharded over its
     own shards. -> f(pb [B, N]) -> RxResult [n_dev, B] on the first shard's
-    device; f.log is the last call's log."""
+    device (of this rank's: over ranks, every rank passes the whole pb and
+    gets the whole result); f.log is the last call's log."""
     prog = _TimeSharded(rx_chain, mesh, time_axis, halo, batch_axis)
 
     def run(pb) -> RxResult:

@@ -31,7 +31,8 @@ MODULES = sorted(
 JAX_FREE = sorted(
     [str(p.relative_to(REPO))
      for p in (REPO / "mercury_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py", "tests/test_torch_cuda.py"])
+    + ["chip_smoke.py", "tests/test_torch_cuda.py",
+       "tests/test_torch_dist_ranks.py"])
 
 
 def _imported(path: pathlib.Path) -> list[str]:
