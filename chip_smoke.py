@@ -22,6 +22,16 @@ build/mercury_tpu_torch/), then:
      with either taps (to_baseband, measure_signal_dbm); deep_mf_score
      also at the refine shapes of CONFIG_11 (three preamble symbols), 13
      (two) and 16 (one), and at refine_decode's full-rate shape;
+     ldpc_layered (the layered LDPC decode, one launch a decode) at every
+     code rate, SPA and min-sum, at batch 256 with mixed noise (rows that
+     converge and rows that do not) and at batch 1, and SPA after one and
+     after three sweeps (roofline.ldpc_agree): min-sum bit-exact; SPA ok
+     different on at most 1% of the rows (rounded down), bits equal where
+     both converged, posterior signs equal where both converged at the
+     same sweep, and over at most three sweeps iters within one and the
+     posterior within the limit and share of roofline.LDPC_POST_BARS;
+     one decode under torch.profiler shows the kernel and no cumprod,
+     atanh or index_add;
   2. drives the port's receive paths, TxChain.transmit -> awgn_passband ->
      RxChain.receive, with batch 256: CONFIG_3 (BPSK 4/16, noncoherent deep
      sync), CONFIG_9 (QPSK 8/16) and CONFIG_0 (BPSK 1/16, coherent deep
@@ -132,6 +142,7 @@ from mercury_tpu_torch.core.modes import HIGH_DENSITY, LOW_DENSITY
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.channel.ber import BerHarness
 from mercury_tpu_torch.dsp import kernels, ops
+from mercury_tpu_torch.fec import ldpc
 from mercury_tpu_torch.link import protocol as P
 from mercury_tpu_torch.link.node import ArqConfig, ArqNode
 from mercury_tpu_torch.link.sim import ChannelModel, LinkSimulator
@@ -148,9 +159,11 @@ from mercury_tpu_torch.tools import fading_ber, link_benchmark
 from mercury_tpu_torch.tools import pattern_detect_sweep, roofline
 from mercury_tpu_torch.tools import serve_bench, throughput_table
 # one yardstick: the roofline tool's bound, counts, raw launches and timer
-from mercury_tpu_torch.tools.roofline import (checked, fir_bound, fir_raw,
-                                              mf_bound, mf_raw, pcs_bound,
-                                              pcs_raw, warm_ms)
+from mercury_tpu_torch.tools.roofline import (LDPC_FEW_SWEEPS, checked,
+                                              fir_bound, fir_raw, ldpc_agree,
+                                              ldpc_bound, ldpc_mixed_llr,
+                                              ldpc_raw, mf_bound, mf_raw,
+                                              pcs_bound, pcs_raw, warm_ms)
 
 BATCH = 256
 # Es/N0 (dB) of each main path: 12 dB up to QPSK, then tests/test_rx.py:64's
@@ -172,16 +185,22 @@ KERNELS = {
                     "mercury_tpu/dsp/pallas_kernels.py:404"),
     "pilot_cand_score": ("mercury_tpu_torch/csrc/pilot_cand_score.cu",
                          "mercury_tpu/dsp/pallas_kernels.py:573"),
+    "ldpc_layered": ("mercury_tpu_torch/csrc/ldpc_layered.cu",
+                     "mercury_tpu/fec/ldpc.py:386"),
 }
 # the kernels each receive path must launch
-PATH_KERNELS = {3: ("mix_fir_decimate", "deep_mf_score"),
-                9: ("mix_fir_decimate", "deep_mf_score"),
-                0: ("mix_fir_decimate", "deep_mf_max", "pilot_cand_score"),
-                16: ("mix_fir_decimate", "deep_mf_score"),
-                13: ("mix_fir_decimate", "deep_mf_score"),
-                11: ("mix_fir_decimate", "deep_mf_score"),
-                100: ("mix_fir_decimate",), 101: ("mix_fir_decimate",),
-                102: ("mix_fir_decimate",)}
+PATH_KERNELS = {3: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
+                9: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
+                0: ("mix_fir_decimate", "deep_mf_max", "pilot_cand_score",
+                    "ldpc_layered"),
+                16: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
+                13: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
+                11: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
+                100: ("mix_fir_decimate", "ldpc_layered"),
+                101: ("mix_fir_decimate", "ldpc_layered"),
+                102: ("mix_fir_decimate", "ldpc_layered")}
+# the code rates of the layered LDPC decode (every rate a config uses)
+LDPC_RATES = (1, 2, 3, 4, 5, 6, 8, 14)
 # Es/N0 of the cfo_range="narrow" receives at +-30 Hz: at 12 dB the JAX
 # chain itself loses rows (CONFIG_0: 3 of 64, CONFIG_9: 10 of 64, and 2 of
 # 64 at 16 dB; the port the same rows, wide or narrow:
@@ -227,6 +246,11 @@ def shape_key(name: str, a: dict) -> tuple:
         bb = a["bb_dec"]
         return (*bb.shape, *bb.stride(), a["idx0"].shape[1],
                 *a["bank"].shape)
+    if name == "ldpc_layered":
+        plan = a["plan"]
+        return (a["llr"].shape[0], f"rate {plan.rate_num}",
+                f"{plan.n_layers} layers", a["algo"],
+                "soft" if a["soft"] else "hard")
     return (*a["seg"].shape, *a["bank"].shape, a["window"])
 
 
@@ -241,7 +265,7 @@ def _copy(v):
 
 
 class ShapeLog:
-    """The launch shapes of the four kernels. Each wrapper in `kernels` is
+    """The launch shapes of the kernels. Each wrapper in `kernels` is
     replaced by one that notes the shape (shape_key) of every call on the
     card, then calls the wrapper (whose launch count is its own). While
     `path` is None (phase 1) a shape is noted as held against the plain
@@ -292,14 +316,27 @@ def hold_path_shapes(log: ShapeLog) -> dict:
     with the argmax equal wherever the plain version's top two differ by
     more than 1e-3; pilot_cand_score rtol 1e-4, atol 1e-5), each timed
     through the wrapper, alone and plain (5 launches each) beside its
-    bound. -> {"name shape": figures}."""
+    bound; ldpc_layered as ldpc_agree holds it (min-sum bit-exact), its
+    plain version timed once. -> {"name shape": figures}."""
     out = {}
     for (name, key), entry in sorted(log.unheld.items(), key=str):
         a = entry["args"]
-        wrapper, plain = log.wrappers[name], getattr(kernels, f"{name}_ref")
+        wrapper = log.wrappers[name]
+        plain = (kernels.layered_decode_ref if name == "ldpc_layered"
+                 else getattr(kernels, f"{name}_ref"))
         pa = {k: v for k, v in a.items() if k != "prepared"}
         lib_ms = None
-        if name == "mix_fir_decimate":
+        plain_reps = 5
+        if name == "ldpc_layered":
+            got = wrapper(**a)
+            want, p_ms = event_ms(lambda: plain(**pa))
+            err, text = ldpc_agree(got, want, a["algo"], f"{name} {key}",
+                                   a["max_iter"])
+            bd = ldpc_bound(**a, iters=got[1])
+            raw = ldpc_raw(**a)
+            text += f"; {bd['sweeps']:.2f} sweeps a row"
+            plain_reps = 0
+        elif name == "mix_fir_decimate":
             got, want = wrapper(**a), plain(**pa)
             err = (got - want).abs().max().item()
             limit = 1e-4 * max(1.0, want.abs().max().item())
@@ -350,7 +387,8 @@ def hold_path_shapes(log: ShapeLog) -> dict:
         st = {"launches": log.launches[name, key], "path": entry["path"],
               "max_abs_err": err, "ms": warm_ms(lambda: wrapper(**a), 5),
               "kernel_ms": warm_ms(checked(raw, name), 5),
-              "plain_ms": warm_ms(lambda: plain(**pa), 5),
+              "plain_ms": (warm_ms(lambda: plain(**pa), plain_reps)
+                           if plain_reps else p_ms),
               "library_ms": lib_ms, **bd}
         out[f"{name} {key}"] = st
         print(f"path shape {name} {list(key)} (first launched by "
@@ -762,6 +800,107 @@ def check_pilot_cand_score(rx: RxChain, gen: torch.Generator,
           f"referenced; templates read per (row, candidate): "
           f"{8 * batch * m * span / 1e6:.1f} MB); library: none")
     return out
+
+
+def event_ms(fn) -> tuple:
+    """fn() once between two CUDA events -> (its result, device ms; the
+    host's waits inside fn count)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    res = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return res, e0.elapsed_time(e1)
+
+
+def check_ldpc_layered(dev: torch.device) -> dict:
+    """The layered LDPC decode on every rate, SPA and min-sum, with the
+    posterior out (BICM-ID's call): batch 256 at mixed noise
+    (roofline.ldpc_mixed_llr: rows that converge within the 50 sweeps and
+    rows that do not), SPA also after one and after LDPC_FEW_SWEEPS sweeps,
+    and batch 1 (a link node's) on the row that the plain decode at batch
+    256 converged in the fewest sweeps: the kernel against
+    layered_decode_ref on the card as roofline.ldpc_agree holds it
+    (min-sum bit-exact; SPA element by element over few sweeps). A decode
+    is one launch, and a torch.profiler trace of one (rate 8, SPA) lists
+    no cumprod, atanh or index_add. Each case's wrapper ms and kernel alone
+    (raw launch) over 5 launches, plain ms (one call), mean sweeps and
+    bound. -> rate 8/16 SPA at batch 256 (CONFIG_9's decode) as the kernels
+    line's entry, its max_abs_err the largest posterior gap of rate 8/16
+    SPA's decodes held element by element, every case under "cases"."""
+    cases = {}
+    for rate in LDPC_RATES:
+        cw, llr_all = ldpc_mixed_llr(rate, BATCH, seed=rate)
+        llr_all = llr_all.to(dev)
+        for algo in ("spa", "minsum"):
+            runs = [("batch 256", 50)]
+            if algo == "spa":
+                runs += [("one sweep", 1),
+                         (f"{LDPC_FEW_SWEEPS} sweeps", LDPC_FEW_SWEEPS)]
+            runs.append(("batch 1", 50))
+            for label, max_iter in runs:
+                llr = llr_all
+                if label == "batch 1":
+                    it = cases[f"rate {rate}/16 {algo} batch 256"]["iters"]
+                    row = int(torch.where(it > 0, it, 1 << 20).argmin())
+                    llr = llr_all[row: row + 1]
+                dec = ldpc.LayeredDecoder(rate, max_iter, algo=algo).to(dev)
+                before = kernels.LAUNCHES["ldpc_layered"]
+                got = dec(llr, soft=True)
+                assert kernels.LAUNCHES["ldpc_layered"] == before + 1
+                args = dict(llr=llr, plan=dec.plan, max_iter=max_iter,
+                            algo=algo, alpha=dec.alpha, beta=dec.beta,
+                            soft=True)
+                want, p_ms = event_ms(
+                    lambda: kernels.layered_decode_ref(**args))
+                name = f"rate {rate}/16 {algo} {label}"
+                err, text = ldpc_agree(got, want, algo, name, max_iter)
+                if label == "batch 256":
+                    assert got[2].any() and not got[2].all(), name
+                if label == "batch 1":
+                    text += f" (row {row})"
+                bd = ldpc_bound(**args, iters=got[1])
+                st = {"max_abs_err": err, "plain_ms": p_ms,
+                      "ms": warm_ms(lambda: dec(llr, soft=True), 5),
+                      "kernel_ms": warm_ms(checked(ldpc_raw(**args), name),
+                                           5),
+                      "ok": int(got[2].sum()), "library_ms": None,
+                      "iters": want[1], **bd}
+                cases[name] = st
+                print(f"ldpc_layered {name} [{llr.shape[0]},1600], "
+                      f"{dec.n_layers} layers: {text}; {st['ok']}/"
+                      f"{llr.shape[0]} rows converged, {bd['sweeps']:.2f} "
+                      f"sweeps a row; wrapper {st['ms']:.4f} ms, kernel "
+                      f"alone {st['kernel_ms']:.4f} ms, plain {p_ms:.2f} "
+                      f"ms; {bound_text(bd, st['kernel_ms'])}; library: "
+                      f"none (no PyTorch call decodes LDPC)")
+    # one decode under the profiler: the kernel and no torch arithmetic
+    dec = ldpc.LayeredDecoder(8).to(dev)
+    llr = ldpc_mixed_llr(8, BATCH, seed=8)[1].to(dev)
+    dec(llr)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        dec(llr)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    dev_ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    banned = [n for n in names if any(k in n for k in (
+        "cumprod", "atanh", "index_add"))]
+    assert not banned and any("ldpc_layered" in n for n in dev_ops), (
+        banned, dev_ops)
+    print(f"ldpc_layered: one decode (rate 8/16 SPA, batch 256) under "
+          f"torch.profiler: {len(dev_ops)} device operations "
+          f"{sorted(set(dev_ops))}; no cumprod, atanh or index_add")
+    held = max(cases[f"rate 8/16 spa {label}"]["max_abs_err"] for label in
+               ("one sweep", f"{LDPC_FEW_SWEEPS} sweeps"))
+    for st in cases.values():
+        del st["iters"]
+    return {**cases["rate 8/16 spa batch 256"], "max_abs_err": held,
+            "cases": cases}
 
 
 def drive_main_path(cfg: int, dev: torch.device, ctrl: bool = False) -> dict:
@@ -1772,7 +1911,7 @@ def drive_channel_parallel(dev: torch.device) -> dict:
     payload; payload, crc_ok and delay equal the unsharded receive's, iters
     within one sweep; no transfer between shards), wall times host clock
     (mean of 3 after a warm-up, each ending in a synchronize); CONFIG_0 at
-    12 dB as 4 shards x 64 rows, which launches all four kernels under
+    12 dB as 4 shards x 64 rows, which launches all five kernels under
     shards; then spmd_overhead_curve at a fixed total batch of 256 (white
     noise, so every row decodes through all 50 LDPC sweeps)."""
     launches = dict.fromkeys(KERNELS, 0)
@@ -2241,7 +2380,7 @@ def drive_processes(dev: torch.device) -> dict:
     ranks), CONFIG_9 time-sharded with the time axis across the ranks (256
     streams of 2 x 92480 at 12 dB, ts_plan's frames: its halos and dedupe
     rows cross processes), CONFIG_0 channel-parallel, 2 x 128 rows at 12
-    dB (all four kernels under ranks). Each rank's result must equal the
+    dB (all five kernels under ranks). Each rank's result must equal the
     one-process form's on the same input (run in rank 0, rank_forms):
     crc_ok, and the payload and delay of every claim (for the time-sharded
     forms every frame claimed once, check_claims). Prints each form's wall
@@ -2553,7 +2692,7 @@ def drive_qualification_tools(dev: torch.device) -> dict:
 
     t1 = time.perf_counter()
     rec = roofline.run(dev, reps=3, profile=False)
-    assert len(rec["stages"]) == 13, rec["stages"]
+    assert len(rec["stages"]) == 17, rec["stages"]
     assert all(rec["receive"][k]["decoded"] == BATCH
                for k in ("CONFIG_9", "CONFIG_3", "CONFIG_0", "timed")), rec
     times["roofline"] = time.perf_counter() - t1
@@ -2617,7 +2756,8 @@ def main() -> int:
              "deep_mf_score": check_deep_mf_score(rx3, gen, refine_only,
                                                   chains["CONFIG_9"]),
              "deep_mf_max": check_deep_mf_max(rx0, gen),
-             "pilot_cand_score": check_pilot_cand_score(rx0, gen)}
+             "pilot_cand_score": check_pilot_cand_score(rx0, gen),
+             "ldpc_layered": check_ldpc_layered(dev)}
     # a link node's batch-1 receive at CONFIG_0
     check_deep_mf_max(rx0, gen, batch=1)
     check_pilot_cand_score(rx0, gen, batch=1)
@@ -2651,12 +2791,12 @@ def main() -> int:
         ArqConfig(init_configuration=0, gear_shift_on=True,
                   robust_enabled=False, batch_size=3), 20.0, 4096,
         ("mix_fir_decimate", "deep_mf_score", "deep_mf_max",
-         "pilot_cand_score"))
+         "pilot_cand_score", "ldpc_layered"))
     run("link ROBUST", drive_link,
         dev, "ROBUST from CONFIG_100, -5 dB channel SNR",
         ArqConfig(init_configuration=100, gear_shift_on=True,
                   robust_enabled=True, batch_size=5), -5.0, 200,
-        ("mix_fir_decimate",))
+        ("mix_fir_decimate", "ldpc_layered"))
     run("tcp", drive_tcp, dev)
     run("pools", drive_pools, dev)
     print(f"link, tcp and pool phases: {time.perf_counter() - t_new:.1f} s")

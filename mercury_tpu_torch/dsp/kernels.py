@@ -1,5 +1,7 @@
-"""The receive path's four hand-written CUDA kernels, each beside its plain
-PyTorch version.
+"""The receive path's hand-written CUDA kernels, each beside its plain
+PyTorch version: the mixer and decimating FIR, the matched-filter bank
+scores and their max over the bank, the pilot candidate scores, and the
+layered LDPC decode.
 
 A wrapper takes the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel (built at first use by `native.load_library`)
@@ -11,16 +13,19 @@ whatever device the calling thread has current.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
+from typing import ClassVar
 
+import numpy as np
 import torch
 
 from mercury_tpu_torch import native
 from mercury_tpu_torch.dsp import ops
 
 LAUNCHES = {"mix_fir_decimate": 0, "deep_mf_score": 0, "deep_mf_max": 0,
-            "pilot_cand_score": 0}
+            "pilot_cand_score": 0, "ldpc_layered": 0}
 _LAUNCHES_LOCK = threading.Lock()
 # hypotheses per FFT pass of deep_mf_max_ref: bounds its [B, A, 2w+1] surface
 _MAX_CHUNK = 8
@@ -450,3 +455,248 @@ def pilot_cand_score(bb_dec: torch.Tensor, idx0: torch.Tensor,
             bank_t.data_ptr(), e_t.data_ptr(), out.data_ptr(), b, n_dec,
             bb_dec.stride(0), bb_dec.stride(1), m, f_n, nsym, s_d)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Layered LDPC decode
+# ---------------------------------------------------------------------------
+
+_BIG = 3.0e38
+# edges one lane holds of a check (csrc/ldpc_layered.cu's LDPC_KMAX)
+_LDPC_KMAX = 4
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to bfloat16 and back (round to nearest even)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def check_node_update(q: torch.Tensor, mask: torch.Tensor, algo: str = "spa",
+                      alpha: float = 1.0, beta: float = 0.0) -> torch.Tensor:
+    """Check update on edge messages q [B, P, Cw] (mask [P, Cw]); 0 on
+    padded edges.
+
+    "spa": R = 2 atanh(prod_{other edges} tanh(q/2)), exclusive products
+    from forward/backward cumulative products. "minsum": offset min-sum,
+    R = sign_excl * clip(alpha * max(min_excl - beta, 0), 0, 8.7), the
+    exclusive minimum from (min1, min2, first occurrence of min1) and the
+    exclusive sign from the parity of the negative edges."""
+    if algo == "minsum":
+        absq = torch.where(mask, torch.abs(q), _BIG)
+        min1 = torch.amin(absq, dim=-1, keepdim=True)
+        eq = absq == min1
+        is_min = eq & (torch.cumsum(eq.to(torch.int32), dim=-1) == 1)
+        min2 = torch.amin(torch.where(is_min, _BIG, absq), dim=-1,
+                          keepdim=True)
+        excl_min = torch.where(is_min, min2, min1)
+        # the clip to the SPA's effective atanh bound keeps messages from
+        # growing without bound through the graph's cycles
+        excl_min = torch.clamp(alpha * torch.clamp(excl_min - beta, min=0.0),
+                               0.0, 8.7)
+        sbit = (mask & (q < 0)).to(torch.int32)
+        par = torch.sum(sbit, dim=-1, keepdim=True)
+        sign_excl = (1 - 2 * ((par - sbit) & 1)).to(q.dtype)
+        return torch.where(mask, sign_excl * excl_min, 0.0)
+    t = torch.where(mask, torch.tanh(0.5 * q), 1.0)
+    ones = torch.ones_like(t[..., :1])
+    fwd = torch.cat([ones, torch.cumprod(t, dim=-1)[..., :-1]], dim=-1)
+    bwd = torch.cat([ones, torch.cumprod(t.flip(-1), dim=-1)[..., :-1]],
+                    dim=-1).flip(-1)
+    prod_excl = torch.clamp(fwd * bwd, -0.9999999, 0.9999999)
+    return torch.where(mask, 2.0 * torch.atanh(prod_excl), 0.0)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LdpcPlan:
+    """A layered decoding schedule in CSR form (fec.ldpc.pack_plan builds
+    it), the operand of ldpc_layered and its plain version. Tables (int32):
+    the checks of layer l are [layer_ptr[l], layer_ptr[l+1]); the edges of
+    check c are [check_ptr[c], check_ptr[c+1]), in position order, edge e
+    on variable edge_var[e]; layer l touches the variables var_id[j] for j
+    in [var_ptr[l], var_ptr[l+1]), variable j on the edges var_edge[k] for
+    k in [var_edge_ptr[j], var_edge_ptr[j+1]), ascending. disjoint: no two
+    checks of a layer share a variable. The launch geometry: `group` lanes a check (a
+    power of two, at most 32, each lane holding at most 4 edges),
+    `threads` a block, and `layer_scratch` floats of shared memory for a
+    grouped layer's deltas (0 when disjoint)."""
+    TABLES: ClassVar[tuple] = ("layer_ptr", "check_ptr", "edge_var",
+                               "var_ptr", "var_id", "var_edge_ptr",
+                               "var_edge")
+    rate_num: int
+    n: int
+    disjoint: bool
+    n_layers: int
+    n_checks: int
+    n_edges: int
+    max_layer_checks: int
+    max_degree: int
+    group: int
+    threads: int
+    layer_scratch: int
+    layer_ptr: torch.Tensor
+    check_ptr: torch.Tensor
+    edge_var: torch.Tensor
+    var_ptr: torch.Tensor
+    var_id: torch.Tensor
+    var_edge_ptr: torch.Tensor
+    var_edge: torch.Tensor
+
+    @classmethod
+    def from_arrays(cls, rate_num: int, n: int, disjoint: bool,
+                    **tables) -> "LdpcPlan":
+        arr = {k: np.asarray(v, dtype=np.int32) for k, v in tables.items()}
+        lp, cp = arr["layer_ptr"], arr["check_ptr"]
+        max_layer_checks = int(np.diff(lp).max())
+        max_degree = int(np.diff(cp).max())
+        group = min(32, 1 << (max_degree - 1).bit_length())
+        if -(-max_degree // group) > _LDPC_KMAX:
+            raise ValueError(f"check degree {max_degree} above "
+                             f"{32 * _LDPC_KMAX}")
+        threads = min(512, max(256, -(-group * max_layer_checks // 32) * 32))
+        layer_edges = np.diff(cp[lp])
+        return cls(rate_num=rate_num, n=n, disjoint=bool(disjoint),
+                   n_layers=len(lp) - 1, n_checks=len(cp) - 1,
+                   n_edges=int(cp[-1]), max_layer_checks=max_layer_checks,
+                   max_degree=max_degree, group=group, threads=threads,
+                   layer_scratch=0 if disjoint else int(layer_edges.max()),
+                   **{k: torch.as_tensor(v) for k, v in arr.items()})
+
+    def with_tables(self, tables: dict) -> "LdpcPlan":
+        """The same plan with its tables replaced (e.g. moved to a card)."""
+        return dataclasses.replace(self, **tables)
+
+
+def _padded_plan(plan: LdpcPlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plan in layer_plan's padded layout: (edge_idx [L, Pl*Cw] int64,
+    padded edges at the dummy variable slot N; mask [L, Pl, Cw] bool)."""
+    lp, cp = plan.layer_ptr.long(), plan.check_ptr.long()
+    dev = lp.device
+    pl, cw = plan.max_layer_checks, plan.max_degree
+    layer = torch.repeat_interleave(torch.arange(plan.n_layers, device=dev),
+                                    lp[1:] - lp[:-1])
+    row = torch.arange(plan.n_checks, device=dev) - lp[layer]
+    check = torch.repeat_interleave(torch.arange(plan.n_checks, device=dev),
+                                    cp[1:] - cp[:-1])
+    pos = torch.arange(plan.n_edges, device=dev) - cp[check]
+    slot = (layer[check] * pl + row[check]) * cw + pos
+    size = plan.n_layers * pl * cw
+    edge_idx = torch.full((size,), plan.n, dtype=torch.int64, device=dev)
+    edge_idx[slot] = plan.edge_var.long()
+    mask = torch.zeros(size, dtype=torch.bool, device=dev)
+    mask[slot] = True
+    return (edge_idx.reshape(plan.n_layers, pl * cw),
+            mask.reshape(plan.n_layers, pl, cw))
+
+
+def layered_sweep_ref(llr: torch.Tensor, r_msgs: list, edge_idx: torch.Tensor,
+                      mask: torch.Tensor, algo: str, alpha: float,
+                      beta: float):
+    """One sweep of the plain layered decode over every layer: the
+    posterior llr [B, N] and the check messages r_msgs (a [B, Pl, Cw] a
+    layer) -> (posterior, new messages). The posterior read into a check
+    update and the delta written back are rounded to bfloat16; a layer's
+    deltas are added to a scratch row in edge order (index_add_) and the
+    row to the posterior."""
+    b, n = llr.shape
+    _, pl, cw = mask.shape
+    pad = torch.zeros_like(llr[:, :1])
+    r_new_all = []
+    for l in range(mask.shape[0]):
+        idx = edge_idx[l]
+        r_old = r_msgs[l]
+        post = torch.cat([_bf16(llr), pad], dim=-1)
+        q = post[:, idx].reshape(b, pl, cw) - r_old
+        r_new = check_node_update(q, mask[l], algo, alpha, beta)
+        delta = _bf16((r_new - r_old).reshape(b, -1))
+        upd = torch.zeros((b, n + 1), dtype=llr.dtype,
+                          device=llr.device).index_add_(1, idx, delta)
+        llr = llr + upd[:, :n]
+        r_new_all.append(r_new)
+    return llr, r_new_all
+
+
+def layered_decode_ref(llr: torch.Tensor, plan: LdpcPlan, max_iter: int,
+                       algo: str = "spa", alpha: float = 1.0,
+                       beta: float = 0.0, soft: bool = False):
+    """Plain version of ldpc_layered: the sweeps run from the host, every
+    row of the batch together, converged rows frozen, with one host read
+    of the done mask a sweep. The plan's tables are laid out as layer_plan
+    pads them (_padded_plan) and the syndrome is taken over the padded
+    checks (an all-padding row has even parity)."""
+    llr = llr.to(torch.float32)
+    b = llr.shape[0]
+    edge_idx, mask = _padded_plan(plan)
+    n_l, pl, cw = mask.shape
+    check_var = edge_idx.reshape(n_l * pl, cw)
+
+    def syndrome_ok(x):
+        bits = torch.cat([(x < 0).long(),
+                          torch.zeros_like(x[:, :1], dtype=torch.long)], -1)
+        return torch.all(bits[:, check_var].sum(dim=-1) % 2 == 0, dim=-1)
+
+    done = syndrome_ok(llr)
+    iters = torch.where(done, 0, max_iter + 1)
+    r_msgs = [torch.zeros((b, pl, cw), dtype=torch.float32,
+                          device=llr.device) for _ in range(n_l)]
+    llr_tot = llr
+    it = 0
+    while it < max_iter and not bool(done.all()):
+        llr_new, r_new = layered_sweep_ref(llr_tot, r_msgs, edge_idx, mask,
+                                           algo, alpha, beta)
+        conv = syndrome_ok(llr_new)
+        keep = done[:, None]
+        llr_tot = torch.where(keep, llr_tot, llr_new)
+        r_msgs = [torch.where(keep[:, :, None], r0, r1)
+                  for r0, r1 in zip(r_msgs, r_new)]
+        iters = torch.where(conv & ~done, it + 1, iters)
+        done = done | conv
+        it += 1
+    bits = (llr_tot < 0).long()
+    if soft:
+        return bits, iters, done, llr_tot
+    return bits, iters, done
+
+
+def ldpc_layered(llr: torch.Tensor, plan: LdpcPlan, max_iter: int,
+                 algo: str = "spa", alpha: float = 1.0, beta: float = 0.0,
+                 soft: bool = False):
+    """Layered BP decode of llr [B, N] on plan (fec.ldpc.pack_plan):
+    "spa" or offset min-sum (alpha, beta) check updates, at most max_iter
+    sweeps -> (bits [B, N] int64, iters [B] int64, ok [B] bool), plus the
+    posterior [B, N] float32 with soft (the contract of
+    layered_decode_ref, the plain version).
+
+    CUDA: one launch, a block a row, the posterior and the check messages
+    in shared memory; every sweep, the convergence test and the outputs in
+    the kernel, on the operands' current stream, with no host read until
+    the decode ends. The plan's tables must lie on llr's card."""
+    if llr.device.type == "cpu":
+        return layered_decode_ref(llr, plan, max_iter, algo, alpha, beta,
+                                  soft)
+    _require(llr.device.type == "cuda", f"unsupported device {llr.device}")
+    _require(algo in ("spa", "minsum"), "algo must be 'spa' or 'minsum'")
+    _require(llr.dim() == 2 and llr.shape[1] == plan.n,
+             f"ldpc_layered: llr {tuple(llr.shape)} is not [B, {plan.n}]")
+    _require(max_iter >= 0, "ldpc_layered: max_iter must be >= 0")
+    tables = [getattr(plan, name) for name in LdpcPlan.TABLES]
+    _require(all(t.device == llr.device and t.dtype == torch.int32
+                 and t.is_contiguous() for t in tables),
+             f"ldpc_layered: the plan's tables must be contiguous int32 on "
+             f"{llr.device}")
+    llr = llr.to(torch.float32).contiguous()
+    b, n = llr.shape
+    dev = llr.device
+    bits = torch.empty((b, n), dtype=torch.int64, device=dev)
+    iters = torch.empty((b,), dtype=torch.int64, device=dev)
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    post = (torch.empty((b, n), dtype=torch.float32, device=dev) if soft
+            else None)
+    if b > 0:
+        _launch("ldpc_layered", llr, native.load_library().ldpc_launch,
+                llr.data_ptr(), *[t.data_ptr() for t in tables],
+                bits.data_ptr(), iters.data_ptr(), ok.data_ptr(),
+                None if post is None else post.data_ptr(), b, n,
+                plan.n_layers, plan.n_checks, plan.n_edges,
+                plan.layer_scratch, plan.group, plan.threads, int(max_iter),
+                int(algo == "minsum"), float(alpha), float(beta))
+    return (bits, iters, ok, post) if soft else (bits, iters, ok)

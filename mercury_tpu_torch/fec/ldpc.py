@@ -12,7 +12,11 @@ posterior delta written back. Syndromes are integer parity counts.
 Every decoder keeps the JAX contract: iters is 0 for a row whose hard
 decisions already satisfy every check, the iteration at which it converged
 otherwise, and max_iter+1 for a row that never converges; converged rows are
-frozen. The loop ends when every row is done or the cap is reached, with one
+frozen. On a CUDA tensor the layered decoder is one launch of the
+`ldpc_layered` kernel (dsp.kernels), which runs every sweep of a row in one
+thread block and reads nothing back to the host until the decode ends. Its
+plain version (kernels.layered_decode_ref, the CPU path), the flooding
+decoder and bit-flipping loop over the iterations on the host, with one
 host-side read of the done mask per iteration.
 """
 
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mercury_tpu_torch.dsp import kernels
 from mercury_tpu_torch.fec.tables import LdpcCode, load_code
 
 # Normalized min-sum scale per rate, calibrated in the JAX package at each
@@ -31,7 +36,6 @@ from mercury_tpu_torch.fec.tables import LdpcCode, load_code
 # degree-3 checks want alpha near 1, high-rate near 0.7.
 MINSUM_ALPHA = {1: 0.95, 2: 0.925, 3: 0.9, 4: 0.85, 5: 0.75, 6: 0.75,
                 8: 0.7, 14: 0.7}
-_BIG = 3.0e38
 
 
 def encode(gen: torch.Tensor, info_bits: torch.Tensor) -> torch.Tensor:
@@ -78,17 +82,13 @@ def _is_disjoint(code: LdpcCode, members: list[list[int]]) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def layer_plan(rate_num: int, n_layers: int | None = None) -> np.ndarray:
-    """[L, Pl, Cw] check -> variable indices (-1 pad). n_layers None: the
-    smallest balanced variable-disjoint layering (searched from the maximum
-    variable degree upward); 1: every check in one layer (the flooding
-    schedule); k: k balanced layers (grouped-shuffled below the disjoint
-    bound)."""
+def _layer_members(rate_num: int, n_layers: int | None) -> tuple:
+    """The code's checks of each layer, in layer order (see layer_plan)."""
     code = load_code(rate_num)
-    p, cw = code.p, code.cw
+    p = code.p
     if n_layers == 1:
-        members = [list(range(p))]
-    elif n_layers is not None:
+        return (tuple(range(p)),)
+    if n_layers is not None:
         members = _assign_layers(code.c_idx, n_layers)
     else:
         for n_try in range(int(code.deg.max()), p + 1):
@@ -97,56 +97,61 @@ def layer_plan(rate_num: int, n_layers: int | None = None) -> np.ndarray:
                 break
         else:
             members = _assign_layers(code.c_idx, p)
+    return tuple(tuple(m) for m in members)
+
+
+@functools.lru_cache(maxsize=None)
+def layer_plan(rate_num: int, n_layers: int | None = None) -> np.ndarray:
+    """[L, Pl, Cw] check -> variable indices (-1 pad). n_layers None: the
+    smallest balanced variable-disjoint layering (searched from the maximum
+    variable degree upward); 1: every check in one layer (the flooding
+    schedule); k: k balanced layers (grouped-shuffled below the disjoint
+    bound)."""
+    code = load_code(rate_num)
+    members = _layer_members(rate_num, n_layers)
     pl = max(len(m) for m in members)
-    c_idx = np.full((len(members), pl, cw), -1, dtype=np.int64)
+    c_idx = np.full((len(members), pl, code.cw), -1, dtype=np.int64)
     for l, m in enumerate(members):
-        c_idx[l, : len(m)] = code.c_idx[m]
+        c_idx[l, : len(m)] = code.c_idx[list(m)]
     return c_idx
 
 
+@functools.lru_cache(maxsize=None)
+def pack_plan(rate_num: int, n_layers: int | None = None) -> kernels.LdpcPlan:
+    """layer_plan without its padding, as the ldpc_layered kernel and its
+    plain version read it (kernels.LdpcPlan, int32 tables on the CPU):
+    the checks in layer order, each check's edges in position order, and
+    for each layer the variables it touches with their edges in edge
+    order (the order in which a grouped layer adds a variable's deltas)."""
+    code = load_code(rate_num)
+    members = _layer_members(rate_num, n_layers)
+    check_id = np.concatenate([np.asarray(m, dtype=np.int32)
+                               for m in members])
+    rows = code.c_idx[check_id]
+    deg = (rows >= 0).sum(axis=1)
+    edge_var = rows[rows >= 0]                  # row-major: position order
+    layer_ptr = np.concatenate([[0], np.cumsum([len(m) for m in members])])
+    check_ptr = np.concatenate([[0], np.cumsum(deg)])
+    var_ptr, var_id, var_edge_ptr, var_edge = [0], [], [0], []
+    for l in range(len(members)):
+        e0, e1 = check_ptr[layer_ptr[l]], check_ptr[layer_ptr[l + 1]]
+        ev = edge_var[e0:e1]
+        order = np.argsort(ev, kind="stable")   # edges of a variable ascend
+        vids, counts = np.unique(ev[order], return_counts=True)
+        var_id.extend(vids)
+        var_edge.extend(e0 + order)
+        var_edge_ptr.extend(var_edge_ptr[-1] + np.cumsum(counts))
+        var_ptr.append(len(var_id))
+    return kernels.LdpcPlan.from_arrays(
+        rate_num=rate_num, n=code.n, disjoint=len(var_id) == len(edge_var),
+        layer_ptr=layer_ptr, check_ptr=check_ptr,
+        edge_var=edge_var, var_ptr=var_ptr, var_id=var_id,
+        var_edge_ptr=var_edge_ptr, var_edge=var_edge)
+
+
 # ---------------------------------------------------------------------------
-# Check-node updates
+# Syndromes
 # ---------------------------------------------------------------------------
-
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    """Round float32 to bfloat16 and back (round to nearest even)."""
-    return x.to(torch.bfloat16).to(torch.float32)
-
-
-def check_node_update(q: torch.Tensor, mask: torch.Tensor, algo: str = "spa",
-                      alpha: float = 1.0, beta: float = 0.0) -> torch.Tensor:
-    """Check update on edge messages q [B, P, Cw] (mask [P, Cw]); 0 on
-    padded edges.
-
-    "spa": R = 2 atanh(prod_{other edges} tanh(q/2)), exclusive products
-    from forward/backward cumulative products. "minsum": offset min-sum,
-    R = sign_excl * clip(alpha * max(min_excl - beta, 0), 0, 8.7), the
-    exclusive minimum from (min1, min2, first occurrence of min1) and the
-    exclusive sign from the parity of the negative edges."""
-    if algo == "minsum":
-        absq = torch.where(mask, torch.abs(q), _BIG)
-        min1 = torch.amin(absq, dim=-1, keepdim=True)
-        eq = absq == min1
-        is_min = eq & (torch.cumsum(eq.to(torch.int32), dim=-1) == 1)
-        min2 = torch.amin(torch.where(is_min, _BIG, absq), dim=-1,
-                          keepdim=True)
-        excl_min = torch.where(is_min, min2, min1)
-        # the clip to the SPA's effective atanh bound keeps messages from
-        # growing without bound through the graph's cycles
-        excl_min = torch.clamp(alpha * torch.clamp(excl_min - beta, min=0.0),
-                               0.0, 8.7)
-        sbit = (mask & (q < 0)).to(torch.int32)
-        par = torch.sum(sbit, dim=-1, keepdim=True)
-        sign_excl = (1 - 2 * ((par - sbit) & 1)).to(q.dtype)
-        return torch.where(mask, sign_excl * excl_min, 0.0)
-    t = torch.where(mask, torch.tanh(0.5 * q), 1.0)
-    ones = torch.ones_like(t[..., :1])
-    fwd = torch.cat([ones, torch.cumprod(t, dim=-1)[..., :-1]], dim=-1)
-    bwd = torch.cat([ones, torch.cumprod(t.flip(-1), dim=-1)[..., :-1]],
-                    dim=-1).flip(-1)
-    prod_excl = torch.clamp(fwd * bwd, -0.9999999, 0.9999999)
-    return torch.where(mask, 2.0 * torch.atanh(prod_excl), 0.0)
-
 
 def _check_var(code: LdpcCode) -> torch.Tensor:
     """[P, Cw] variables of each check, padded edges at the dummy slot N."""
@@ -179,74 +184,34 @@ class LayeredDecoder(nn.Module):
 
     forward(llr [B, N], soft=False) -> (bits [B, N] int64, iters [B] int64,
     ok [B] bool), plus the posterior LLRs [B, N] float32 with soft=True
-    (what BICM-ID reads)."""
+    (what BICM-ID reads): kernels.ldpc_layered on pack_plan's tables, one
+    kernel launch on a CUDA tensor, the plain version on a CPU one."""
 
     def __init__(self, rate_num: int, max_iter: int = 50, algo: str = "spa",
                  alpha: float | None = None, beta: float = 0.0,
                  n_layers: int | None = None):
         super().__init__()
-        code = load_code(rate_num)
-        self.n = code.n
         self.max_iter = int(max_iter)
         self.algo = algo
         self.alpha = _check_args(algo, rate_num, alpha)
         self.beta = float(beta)
-        plan = layer_plan(rate_num, n_layers)
-        n_l, pl, cw = plan.shape
-        self.n_layers, self.pl, self.cw = n_l, pl, cw
-        # padded edges read and write the dummy variable slot n
-        self.register_buffer("edge_var", torch.as_tensor(
-            np.where(plan >= 0, plan, code.n).reshape(n_l, pl * cw)),
-            persistent=False)
-        self.register_buffer("edge_mask", torch.as_tensor(plan >= 0),
-                             persistent=False)
-        self.register_buffer("check_var", _check_var(code), persistent=False)
+        self._plan = pack_plan(rate_num, n_layers)
+        self.n = self._plan.n
+        self.n_layers = self._plan.n_layers
+        # the tables follow the module's device as buffers
+        for name in kernels.LdpcPlan.TABLES:
+            self.register_buffer(name, getattr(self._plan, name),
+                                 persistent=False)
 
-    def syndrome_ok(self, llr: torch.Tensor) -> torch.Tensor:
-        return torch.all(syndrome(llr, self.check_var) == 0, dim=-1)
-
-    def _sweep(self, llr: torch.Tensor, r_msgs: list[torch.Tensor]):
-        b = llr.shape[0]
-        pad = torch.zeros_like(llr[:, :1])
-        r_new_all = []
-        for l in range(self.n_layers):
-            idx = self.edge_var[l]
-            r_old = r_msgs[l]
-            post = torch.cat([_bf16(llr), pad], dim=-1)
-            q = post[:, idx].reshape(b, self.pl, self.cw) - r_old
-            r_new = check_node_update(q, self.edge_mask[l], self.algo,
-                                      self.alpha, self.beta)
-            delta = _bf16((r_new - r_old).reshape(b, -1))
-            upd = torch.zeros((b, self.n + 1), dtype=llr.dtype,
-                              device=llr.device).index_add_(1, idx, delta)
-            llr = llr + upd[:, : self.n]
-            r_new_all.append(r_new)
-        return llr, r_new_all
+    @property
+    def plan(self) -> kernels.LdpcPlan:
+        """pack_plan's tables on the module's device."""
+        return self._plan.with_tables(
+            {name: getattr(self, name) for name in kernels.LdpcPlan.TABLES})
 
     def forward(self, llr: torch.Tensor, soft: bool = False):
-        llr = llr.to(torch.float32)
-        b = llr.shape[0]
-        done = self.syndrome_ok(llr)
-        iters = torch.where(done, 0, self.max_iter + 1)
-        r_msgs = [torch.zeros((b, self.pl, self.cw), dtype=torch.float32,
-                              device=llr.device)
-                  for _ in range(self.n_layers)]
-        llr_tot = llr
-        it = 0
-        while it < self.max_iter and not bool(done.all()):
-            llr_new, r_new = self._sweep(llr_tot, r_msgs)
-            conv = self.syndrome_ok(llr_new)
-            keep = done[:, None]
-            llr_tot = torch.where(keep, llr_tot, llr_new)
-            r_msgs = [torch.where(keep[:, :, None], r0, r1)
-                      for r0, r1 in zip(r_msgs, r_new)]
-            iters = torch.where(conv & ~done, it + 1, iters)
-            done = done | conv
-            it += 1
-        bits = (llr_tot < 0).long()
-        if soft:
-            return bits, iters, done, llr_tot
-        return bits, iters, done
+        return kernels.ldpc_layered(llr, self.plan, self.max_iter, self.algo,
+                                    self.alpha, self.beta, soft)
 
 
 class FloodingDecoder(nn.Module):
@@ -296,8 +261,8 @@ class FloodingDecoder(nn.Module):
         while it < self.max_iter and not bool(done.all()):
             qf = torch.cat([q.reshape(b, n * vw), pad], dim=-1)
             qe = qf[:, self.edge_slot].reshape(b, self.p, self.cw).float()
-            r_vals = check_node_update(qe, self.c_mask, self.algo, self.alpha,
-                                       self.beta)
+            r_vals = kernels.check_node_update(qe, self.c_mask, self.algo,
+                                               self.alpha, self.beta)
             r_flat = torch.zeros((b, n * vw + 1), dtype=mdt,
                                  device=llr.device)
             r_flat[:, self.edge_slot] = r_vals.reshape(b, -1).to(mdt)

@@ -1,5 +1,10 @@
 """Build and load the CUDA kernels of `csrc/`.
 
+Entry points (each returns a cudaError_t; the wrappers in `dsp/kernels.py`
+call them): `mfd_launch` (mix_fir_decimate), `dmf_launch` and
+`dmf_max_launch` (deep_mf_score, deep_mf_max), `pcs_launch`
+(pilot_cand_score) and `ldpc_launch` (ldpc_layered).
+
 Each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all at
 once, and the objects are linked into one shared library with a plain C
 interface, loaded with `ctypes`. The build happens at first use, into
@@ -21,7 +26,8 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "mercury_tpu_torch"
-SOURCES = ("mix_fir_decimate.cu", "deep_mf_score.cu", "pilot_cand_score.cu")
+SOURCES = ("mix_fir_decimate.cu", "deep_mf_score.cu", "pilot_cand_score.cu",
+           "ldpc_layered.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -44,6 +50,13 @@ _SIGNATURES = {
     # nsym, s, stream
     "pcs_launch": (_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I,
                    _I, _I, _I, _P),
+    # llr, layer_ptr, check_ptr, edge_var, var_ptr, var_id, var_edge_ptr,
+    # var_edge, bits, iters, ok, post (or NULL), batch, n, n_layers,
+    # n_checks, n_edges, layer_scratch, group, threads, max_iter, minsum,
+    # alpha, beta, stream
+    "ldpc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                    ctypes.c_float, _P),
 }
 
 

@@ -16,12 +16,13 @@ receive's shapes, beside the work its function must do:
 Times, on the card only (CUDA events; each stage warmed up first):
 - device_ms: the stage alone between two events, the L2 flushed (a
   256 MiB write) before each of `reps` launches, averaged. A stage of one
-  kernel (the four hand kernels) is launched raw, through the kernel
-  library's C entry point on prepared operands; a stage of many torch
-  launches (the Schmidl-Cox metric, the demod, the estimate, an LDPC
-  sweep) is captured once as a CUDA graph and the graph is replayed, so
-  the host's launch time is not in it; a stage with host synchronizations
-  inside (a whole LDPC decode, a whole receive) runs eagerly, and its
+  kernel (the five hand kernels: the LDPC sweep and whole decode are
+  ldpc_layered launches) is launched raw, through the kernel library's C
+  entry point on prepared operands; a stage of many torch launches (the
+  Schmidl-Cox metric, the demod, the estimate, the plain LDPC sweep) is
+  captured once as a CUDA graph and the graph is replayed, so the host's
+  launch time is not in it; a stage with host synchronizations inside
+  (the plain whole LDPC decode, a whole receive) runs eagerly, and its
   device_ms holds the host's waits too;
 - warm_ms: `reps` back-to-back launches between one pair of events, the
   inputs left in the L2 (50 MB) where they fit;
@@ -33,8 +34,9 @@ Times, on the card only (CUDA events; each stage warmed up first):
 
 launches_a_receive counts each stage's calls in a receive of
 bench.bench_buffer (CONFIG_9, and CONFIG_3 and 0 for their scans), the
-LDPC sweeps at the buffer's 12 dB; deep_mf_score's calls are told apart
-by their window: the whole-buffer scan's (SCAN_WINDOW) or a refine's.
+LDPC decodes and their sweeps at the buffer's 12 dB; deep_mf_score's
+calls are told apart by their window: the whole-buffer scan's
+(SCAN_WINDOW) or a refine's.
 
     python -m mercury_tpu_torch.tools.roofline --out docs/roofline_h100.json
     python -m mercury_tpu_torch.tools.roofline --cpu   # the counts only
@@ -81,6 +83,11 @@ SHARE_LIMIT = 1.05
 # min-sum; a flooding sweep adds the variable-node update
 EDGE_FLOPS = {"spa": 24, "minsum": 10, "flooding": 30}
 NEAR_THRESHOLD_SIGMA = 0.9          # the JAX tool's whole-decode LLRs
+# BPSK noise sigma near each rate's waterfall: spread over 0.85-1.1 x it,
+# about half the rows of a batch decode within 50 sweeps (SPA and min-sum;
+# the plain decoder on the CPU, 32 rows)
+LDPC_SIGMA = {1: 2.5, 2: 1.9, 3: 1.55, 4: 1.3, 5: 1.15, 6: 1.05, 8: 0.9,
+              14: 0.5}
 # lags each side of the CONFIG_3 whole-buffer scan (RxChain._refine_arbitrate's
 # win_g: (29648 // 2 - 4 * 136) // 2); a refine's window is a few symbols
 SCAN_WINDOW = 7140
@@ -97,7 +104,7 @@ def bound(nbytes: float, flops: float, kind: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the four hand kernels' counts and raw launches
+# the hand kernels' counts and raw launches
 # ---------------------------------------------------------------------------
 
 def fir_window_samples(n: int, start: torch.Tensor, n_out: int,
@@ -237,19 +244,147 @@ def est_counts(b: int, n_pilots: int, cells: int) -> dict:
 
 
 def ldpc_counts(code, b: int, kind: str, sweeps: float = 1.0,
-                whole: bool = False) -> dict:
+                whole: bool = False, soft: bool = False) -> dict:
     """LDPC work over the code's edges E (EDGE_FLOPS[kind] operations an
     edge a sweep, `sweeps` sweeps a row). One sweep (whole=False) reads and
     writes the posterior [b, N] and the check messages [b, E] (float32);
     a whole decode (whole=True) reads the channel LLRs [b, N] float32 and
     writes the decisions [b, N] int64, iterations [b] int64 and ok [b]
-    bool, its messages staying inside it."""
+    bool, and with soft the posterior [b, N] float32, its messages staying
+    inside it."""
     n = code.n
     edges = int((np.asarray(code.c_idx) >= 0).sum())
-    nbytes = (4 * b * n + 8 * b * n + 9 * b if whole
-              else 4 * b * (2 * n + 2 * edges))
+    nbytes = (4 * b * n + 8 * b * n + 9 * b + (4 * b * n if soft else 0)
+              if whole else 4 * b * (2 * n + 2 * edges))
     return {**bound(nbytes, EDGE_FLOPS[kind] * edges * b * sweeps, "FP32"),
             "edges": edges, "sweeps": sweeps}
+
+
+def ldpc_sweeps(iters: torch.Tensor, max_iter: int) -> float:
+    """The mean sweeps a decode's rows ran: iters, with a row that never
+    converged (max_iter + 1) counted at max_iter."""
+    return float(torch.clamp(iters, 0, max_iter).double().mean())
+
+
+def ldpc_bound(llr, plan, max_iter: int, algo: str = "spa",
+               alpha: float = 1.0, beta: float = 0.0, soft: bool = False,
+               iters: torch.Tensor | None = None) -> dict:
+    """ldpc_layered's bound on the wrapper's operands: a whole decode's
+    bytes and its operations at the sweeps this decode's rows ran (iters,
+    its output)."""
+    return ldpc_counts(load_code(plan.rate_num), llr.shape[0], algo,
+                       ldpc_sweeps(iters, max_iter), whole=True, soft=soft)
+
+
+def ldpc_raw(llr, plan, max_iter: int, algo: str = "spa", alpha: float = 1.0,
+             beta: float = 0.0, soft: bool = False):
+    """A raw launch of ldpc_layered on the wrapper's operands (outputs
+    allocated once, outside the timing)."""
+    lib = native.load_library()
+    b, n = llr.shape
+    dev = llr.device
+    outs = (torch.empty((b, n), dtype=torch.int64, device=dev),
+            torch.empty((b,), dtype=torch.int64, device=dev),
+            torch.empty((b,), dtype=torch.bool, device=dev),
+            torch.empty((b, n), dtype=torch.float32, device=dev)
+            if soft else None)
+    operands = (llr.float().contiguous(),
+                *[getattr(plan, t) for t in kernels.LdpcPlan.TABLES])
+    return lambda: lib.ldpc_launch(
+        *[t.data_ptr() for t in operands],
+        *[None if t is None else t.data_ptr() for t in outs], b, n,
+        plan.n_layers, plan.n_checks, plan.n_edges, plan.layer_scratch,
+        plan.group, plan.threads, max_iter, int(algo == "minsum"),
+        float(alpha), float(beta), kernels._stream(llr))
+
+
+# The SPA bars of ldpc_layered against its plain version (ldpc_agree): a
+# decode that ran k <= LDPC_FEW_SWEEPS sweeps, whose trajectories have not
+# parted yet, is held element by element: its posterior within
+# LDPC_POST_BARS[k][0] and bit-equal on all but the share
+# LDPC_POST_BARS[k][1] of its elements. Each is about 3x the largest
+# reading of tools/ldpc_fault_check.py (8 rates, batch 256 at mixed noise,
+# on an NVIDIA H100 80GB HBM3): after 1, 2, 3 sweeps the kernel parts from
+# the plain version on the card by at most 0.031, 0.063, 0.081, on a share
+# 1.4e-4, 1.6e-3, 7.7e-3 of the elements; built with --use_fast_math on
+# 2.0e-3 or more of them after one sweep, without a bf16 rounding on 0.35
+# or more.
+LDPC_POST_BARS = {1: (0.1, 5e-4), 2: (0.2, 5e-3), 3: (0.25, 2.5e-2)}
+LDPC_FEW_SWEEPS = max(LDPC_POST_BARS)
+
+
+def ldpc_agree(got, want, algo: str, label: str, max_iter: int) -> tuple:
+    """The kernel's decode `got` against the plain version's `want`, both
+    (bits, iters, ok[, posterior]) of a decode of at most max_iter sweeps.
+    Min-sum: every output equal. SPA: ok different on at most 1% of the
+    rows (rounded down: none below 100 rows); bits equal where both
+    converged; the posterior equal in sign where both converged at the
+    same sweep, and the decisions its signs. A decode that ran k <=
+    LDPC_FEW_SWEEPS sweeps (max_iter, or every row of both converged by
+    then) also has iters within one on every row and the posterior within
+    LDPC_POST_BARS[k]'s limit, bit-equal on all but its share. Over more sweeps a last-ulp tanhf/atanhf difference
+    steers a row near the waterfall (the plain version on the card and on
+    the CPU part by up to 6 sweeps and 50 in a posterior LLR:
+    tools/ldpc_plain_spread.py), so those bars hold over few sweeps only.
+    -> (max abs err: of the posterior on the rows held, else whether the
+    bits differ; text)."""
+    soft = len(got) == 4
+    if algo == "minsum":
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), f"{label}: min-sum not bit-exact"
+        return 0.0, "min-sum bit-exact in every output"
+    bits, iters, ok = got[:3]
+    bits_p, iters_p, ok_p = want[:3]
+    n_ok = int((ok != ok_p).sum())
+    assert n_ok <= ok.numel() // 100, f"{label}: ok differs on {n_ok}"
+    both = ok & ok_p
+    assert torch.equal(bits[both], bits_p[both]), f"{label}: bits differ"
+    same = both & (iters == iters_p)
+    ran = min(max_iter, int(torch.maximum(iters, iters_p).max())
+              ) if ok.numel() else 0
+    few = ran <= LDPC_FEW_SWEEPS
+    rows = torch.ones_like(ok) if few else both
+    d_it = (iters - iters_p)[rows].abs().max().item() if rows.any() else 0
+    assert not few or d_it <= 1, f"{label}: iters apart by {d_it}"
+    text = (f"SPA over {ran} sweeps: ok differs on {n_ok}/"
+            f"{ok.numel()} rows, bits equal on {int(both.sum())} converged "
+            f"in both, iters apart by up to {d_it}")
+    if not soft:
+        return float((bits[both] != bits_p[both]).any()), text
+    post, post_p = got[3], want[3]
+    assert torch.equal(torch.sign(post[same]), torch.sign(post_p[same])), (
+        f"{label}: posterior signs differ")
+    assert torch.equal(bits, (post < 0).long()), label
+    rows = rows if few else same
+    gap = (post[rows] - post_p[rows]).abs()
+    err = gap.max().item() if gap.numel() else 0.0
+    if not few:
+        return err, (text + f"; posterior signs equal on {int(same.sum())} "
+                     f"rows converged at the same sweep (max abs err there "
+                     f"{err:.3e})")
+    off = (gap > 0).double().mean().item()
+    atol, share = LDPC_POST_BARS[max(ran, 1)]
+    assert err <= atol and off <= share, (
+        f"{label}: posterior max abs err {err:.3e}, {off:.2e} of it not "
+        f"bit-equal")
+    return err, (text + f"; posterior within {atol} (max abs err "
+                 f"{err:.3e}), not bit-equal on {off:.2e} of it (at most "
+                 f"{share})")
+
+
+def ldpc_mixed_llr(rate: int, batch: int, seed: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(codewords [batch, N] int64, channel LLRs [batch, N] float32) on the
+    CPU: random codewords of the rate as BPSK through AWGN, row r at sigma
+    LDPC_SIGMA[rate] x (0.85 + 0.25 r / (batch - 1)), so some rows decode
+    and some do not."""
+    code = load_code(rate)
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.integers(0, 2, (batch, code.k)))
+    cw = ldpc.encode(torch.as_tensor(code.gen.astype(np.float32)), u)
+    sig = LDPC_SIGMA[rate] * np.linspace(0.85, 1.1, batch)[:, None]
+    y = (1 - 2 * cw.numpy()) + sig * rng.standard_normal(cw.shape)
+    return cw, torch.as_tensor((2 / sig ** 2 * y).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -384,25 +519,10 @@ def stages(device) -> list[Stage]:
         note="the dense est_op product at full FP32 (TF32 off)",
         receive=("CONFIG_9", "est")))
 
-    # --- LDPC: one layered sweep (SPA, min-sum), whole decodes, flooding ---
+    # --- LDPC: one layered sweep (SPA, min-sum), whole decodes, flooding;
+    # the kernel's rows and the plain version's ---
     code = load_code(g.spec.ldpc_rate_num)
     rate = g.spec.ldpc_rate_num
-    for algo in ("spa", "minsum"):
-        def make_sweep(algo=algo):
-            dec = ldpc.LayeredDecoder(rate, algo=algo).to(device)
-            llr = 4.0 * _randn((BATCH, code.n), 6, device)
-            r_msgs = [0.5 * _randn((BATCH, dec.pl, dec.cw), 7 + i, device)
-                      * dec.edge_mask[i] for i in range(dec.n_layers)]
-            return {"eager": lambda: dec._sweep(llr, r_msgs), "raw": None,
-                    "graph": True}
-        out.append(Stage(
-            f"LDPC layered sweep ({algo})",
-            f"[{BATCH},{code.n}] rate {rate}/16, "
-            f"{ldpc.layer_plan(rate).shape[0]} layers",
-            ldpc_counts(code, BATCH, algo), make_sweep,
-            note="LayeredDecoder._sweep: torch ops a layer, host loop",
-            receive=("CONFIG_9", "sweep" if algo == "spa" else "")))
-
     # the JAX tool's near-threshold LLRs: BPSK at sigma 0.9
     rng = np.random.default_rng(0)
     u = torch.as_tensor(rng.integers(0, 2, (BATCH, code.k)))
@@ -410,20 +530,73 @@ def stages(device) -> list[Stage]:
     sigma = NEAR_THRESHOLD_SIGMA
     y = (1 - 2 * cw.numpy()) + sigma * rng.standard_normal(cw.shape)
     llr_nt = torch.as_tensor((2 / sigma ** 2 * y).astype(np.float32))
+    n_layers = ldpc.pack_plan(rate).n_layers
+
+    def kernel_decode(algo, max_iter):
+        """A decode through the kernel's wrapper (eager) and as a raw
+        launch, its counts recomputed at the sweeps its rows ran."""
+        dec = ldpc.LayeredDecoder(rate, max_iter, algo=algo).to(device)
+        llr = llr_nt.to(device)
+        args = (llr, dec.plan, max_iter, algo, dec.alpha, dec.beta)
+        return {"eager": lambda: dec(llr),
+                "raw": ldpc_raw(*args) if device.type == "cuda" else None,
+                "graph": False,
+                "sweeps": lambda out: ldpc_sweeps(out[1], max_iter),
+                "recount": lambda sweeps: ldpc_counts(
+                    code, BATCH, algo, sweeps, whole=True)}
+
     for algo in ("spa", "minsum"):
-        def make_decode(algo=algo):
+        out.append(Stage(
+            f"LDPC layered sweep ({algo})",
+            f"[{BATCH},{code.n}] rate {rate}/16, {n_layers} layers, "
+            f"max_iter 1",
+            ldpc_counts(code, BATCH, algo, whole=True),
+            lambda algo=algo: kernel_decode(algo, 1),
+            "mercury_tpu/fec/ldpc.py:386",
+            "kernels.ldpc_layered with max_iter 1: the channel LLRs in, "
+            "one sweep and two syndromes, decisions out (one launch)",
+            ("CONFIG_9", "sweep" if algo == "spa" else "")))
+
+        def make_sweep(algo=algo):
             dec = ldpc.LayeredDecoder(rate, algo=algo).to(device)
-            llr = llr_nt.to(device)
-            return {"eager": lambda: dec(llr), "raw": None, "graph": False,
-                    "sweeps": lambda out: float(torch.clamp(out[1], 0, 50)
-                                                .double().mean()),
-                    "recount": lambda sweeps: ldpc_counts(
-                        code, BATCH, algo, sweeps, whole=True)}
+            edge_idx, mask = kernels._padded_plan(dec.plan)
+            llr = 4.0 * _randn((BATCH, code.n), 6, device)
+            r_msgs = [0.5 * _randn((BATCH, *mask.shape[1:]), 7 + i, device)
+                      * mask[i] for i in range(mask.shape[0])]
+            return {"eager": lambda: kernels.layered_sweep_ref(
+                llr, r_msgs, edge_idx, mask, algo, dec.alpha, dec.beta),
+                "raw": None, "graph": True}
+        out.append(Stage(
+            f"LDPC layered sweep ({algo}, plain)",
+            f"[{BATCH},{code.n}] rate {rate}/16, {n_layers} layers",
+            ldpc_counts(code, BATCH, algo), make_sweep,
+            note="plain: kernels.layered_sweep_ref, torch ops a layer",
+            receive=("CONFIG_9", "")))
+
+    for algo in ("spa", "minsum"):
         out.append(Stage(
             f"LDPC whole decode ({algo})",
             f"[{BATCH},{code.n}] at sigma {sigma}, up to 50 sweeps",
+            ldpc_counts(code, BATCH, algo, whole=True),
+            lambda algo=algo: kernel_decode(algo, 50),
+            "mercury_tpu/fec/ldpc.py:386",
+            "kernels.ldpc_layered: one launch, no host read inside",
+            ("CONFIG_9", "ldpc" if algo == "spa" else "")))
+
+        def make_decode(algo=algo):
+            dec = ldpc.LayeredDecoder(rate, algo=algo).to(device)
+            llr = llr_nt.to(device)
+            return {"eager": lambda: kernels.layered_decode_ref(
+                llr, dec.plan, 50, algo, dec.alpha, dec.beta),
+                "raw": None, "graph": False,
+                "sweeps": lambda out: ldpc_sweeps(out[1], 50),
+                "recount": lambda sweeps: ldpc_counts(
+                    code, BATCH, algo, sweeps, whole=True)}
+        out.append(Stage(
+            f"LDPC whole decode ({algo}, plain)",
+            f"[{BATCH},{code.n}] at sigma {sigma}, up to 50 sweeps",
             ldpc_counts(code, BATCH, algo, whole=True), make_decode,
-            note="LayeredDecoder.forward: a host read a sweep",
+            note="plain: kernels.layered_decode_ref, a host read a sweep",
             receive=("CONFIG_9", "")))
 
     def make_flood():
@@ -631,12 +804,14 @@ def counting(rx: RxChain):
     kernels' wrappers (the TS FIR: no per-row starts; the data FIR: with
     them; deep_mf_score: the whole-buffer scan at SCAN_WINDOW, else a
     refine), sync.schmidl_cox_metric, ops.ofdm_demod, the grid statistics
-    (one channel estimate each) and the LDPC sweeps."""
+    (one channel estimate each), the LDPC decodes (kernels.ldpc_layered)
+    and their sweeps (the most any row of a decode ran, summed)."""
     calls = {k: 0 for k in ("ts", "data", "scan", "refine", "dmax", "pcs",
-                            "sc", "demod", "est", "sweep")}
+                            "sc", "demod", "est", "ldpc", "sweep")}
     saved = [(kernels, "mix_fir_decimate"), (kernels, "deep_mf_score"),
              (kernels, "deep_mf_max"), (kernels, "pilot_cand_score"),
-             (sync, "schmidl_cox_metric"), (ops, "ofdm_demod")]
+             (sync, "schmidl_cox_metric"), (ops, "ofdm_demod"),
+             (kernels, "ldpc_layered")]
     originals = [getattr(mod, name) for mod, name in saved]
 
     def counted(key, fn):
@@ -649,18 +824,24 @@ def counting(rx: RxChain):
                or len(a) > 4 else "ts")
     dmf_key = (lambda a, kw: "scan" if kw.get("window", a[2]) == SCAN_WINDOW
                else "refine")
+    def ldpc_swept(fn):
+        def f(llr, plan, max_iter, *args, **kw):
+            out = fn(llr, plan, max_iter, *args, **kw)
+            calls["sweep"] += int(torch.clamp(out[1], 0, max_iter).max()
+                                  ) if out[1].numel() else 0
+            return out
+        return f
     for (mod, name), fn, key in zip(saved, originals, (
-            fir_key, dmf_key, "dmax", "pcs", "sc", "demod")):
-        setattr(mod, name, counted(key, fn))
+            fir_key, dmf_key, "dmax", "pcs", "sc", "demod", "ldpc")):
+        setattr(mod, name, counted(key, ldpc_swept(fn) if key == "ldpc"
+                                   else fn))
     rx._grid_stats_internal = counted("est", rx._grid_stats_internal)
-    rx.decoder._sweep = counted("sweep", rx.decoder._sweep)
     try:
         yield calls
     finally:
         for (mod, name), fn in zip(saved, originals):
             setattr(mod, name, fn)
         del rx._grid_stats_internal
-        del rx.decoder._sweep
 
 
 def receive_counts(device, profile: bool = True) -> dict:

@@ -9,6 +9,15 @@ argmax lags (on every row in the first score case, on the planted rows and
 wherever the top two lags differ by more than 1e-3 in the ragged cases) and
 equal argmax hypotheses where the top two differ by more than 1e-3, pilot
 scores rtol 1e-4 / atol 1e-5 (float32 sums in another order). The
+layered LDPC decode as mercury_tpu_torch.tools.roofline.ldpc_agree holds
+it (chip_smoke.py holds it the same way): min-sum bit-exact in bits,
+iters, ok and the posterior (no transcendental; the same bf16 roundings
+and additions); SPA (tanhf/atanhf and the exclusive product's order may
+differ in the last ulp) ok equal on all but 1% of the rows (rounded
+down), bits equal where both converged and the posterior equal in sign
+where they converged at the same sweep; over at most LDPC_FEW_SWEEPS
+sweeps also iters within one and the posterior within LDPC_POST_BARS'
+limit and bit-equal on all but its share of the elements. The
 matched-filter kernels multiply in TF32 on the tensor cores; the plain
 versions are float32 FFTs. A CONFIG_16 receive on the card equals the
 CPU's in crc_ok, delay and decoded payloads, iters within one sweep. The
@@ -604,3 +613,98 @@ def test_virtual_mesh_on_card(cuda_device):
         assert abs(int(out.delay[k, 0]) - st) <= 16
         assert bytes(out.payload[k, 0].cpu().numpy()) == bytes(payload[k])
     assert [e["kind"] for e in ts.log if "bytes" in e] == ["halo", "dedupe"]
+
+
+# ---------------------------------------------------------------------------
+# the layered LDPC decode (kernels.ldpc_layered against layered_decode_ref)
+# ---------------------------------------------------------------------------
+
+LDPC_RATES = (1, 2, 3, 4, 5, 6, 8, 14)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["minsum", "spa"])
+@pytest.mark.parametrize("rate", LDPC_RATES)
+def test_ldpc_layered_kernel_matches_plain(cuda_device, rate, algo):
+    """Batch 256 at mixed noise (rows that converge and rows that do not),
+    RxChain's decoder with the posterior out, over 50 sweeps, one and
+    LDPC_FEW_SWEEPS: as roofline.ldpc_agree holds them (min-sum bit-exact
+    in every output; SPA element by element over few sweeps); one launch
+    a decode."""
+    from mercury_tpu_torch.fec import ldpc
+    from mercury_tpu_torch.tools.roofline import (LDPC_FEW_SWEEPS,
+                                                  ldpc_agree, ldpc_mixed_llr)
+
+    _cw, llr = ldpc_mixed_llr(rate, 256, seed=rate)
+    llr = llr.to(cuda_device)
+    for max_iter in (50, 1, LDPC_FEW_SWEEPS):
+        dec = ldpc.LayeredDecoder(rate, max_iter, algo=algo).to(cuda_device)
+        before = kernels.LAUNCHES["ldpc_layered"]
+        got = dec(llr, soft=True)
+        assert kernels.LAUNCHES["ldpc_layered"] == before + 1
+        want = kernels.layered_decode_ref(llr, dec.plan, max_iter, algo,
+                                          dec.alpha, dec.beta, soft=True)
+        torch.cuda.synchronize()
+        if max_iter == 50:
+            assert got[2].any() and not got[2].all()
+        ldpc_agree(got, want, algo, f"rate {rate} {algo} {max_iter}",
+                   max_iter)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_layers", [1, 4])
+@pytest.mark.parametrize("rate", [1, 8, 14])
+def test_ldpc_layered_kernel_grouped_layers(cuda_device, rate, n_layers):
+    """Layerings below the disjoint bound (a direct call's): the kernel adds
+    a variable's deltas in edge order, as the plain version does on the
+    CPU (on the card its index_add_ adds them in no fixed order), so
+    min-sum equals the CPU run bit for bit."""
+    from mercury_tpu_torch.fec import ldpc
+    from mercury_tpu_torch.tools.roofline import ldpc_mixed_llr
+
+    _cw, llr = ldpc_mixed_llr(rate, 64, seed=10 + rate)
+    dec = ldpc.LayeredDecoder(rate, algo="minsum", n_layers=n_layers)
+    assert not dec.plan.disjoint
+    want = dec(llr, soft=True)
+    got = dec.to(cuda_device)(llr.to(cuda_device), soft=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_ldpc_layered_kernel_edges(cuda_device):
+    """A clean row exits with iters 0; max_iter 0 leaves a noisy row at
+    iters 1 and its input as the posterior; a cap of 5 (set_ldpc_max_iter)
+    gives 6 on the rows it leaves; batch 1 (the link) and a launch on a
+    side stream equal the plain version; an empty batch launches nothing."""
+    from mercury_tpu_torch.fec import ldpc
+    from mercury_tpu_torch.tools.roofline import ldpc_mixed_llr
+
+    cw, llr = (t.to(cuda_device) for t in ldpc_mixed_llr(8, 8, seed=3))
+    clean = 4.0 * (1 - 2 * cw).float()
+    for max_iter in (0, 5, 50):
+        dec = ldpc.LayeredDecoder(8, max_iter, algo="minsum").to(cuda_device)
+        x = torch.cat([clean[:1], llr])
+        got = dec(x, soft=True)
+        want = kernels.layered_decode_ref(x, dec.plan, max_iter, "minsum",
+                                          dec.alpha, soft=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert got[1][0] == 0 and got[2][0]
+        assert (got[1][~got[2]] == max_iter + 1).all()
+        if max_iter == 0:
+            assert torch.equal(got[3], x)
+    dec = ldpc.LayeredDecoder(8, algo="minsum").to(cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = dec(llr[3:4])
+    torch.cuda.current_stream().wait_stream(side)
+    want = kernels.layered_decode_ref(llr[3:4].cpu(), ldpc.pack_plan(8), 50,
+                                      "minsum", dec.alpha)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    before = kernels.LAUNCHES["ldpc_layered"]
+    bits, iters, ok = dec(llr[:0])
+    assert bits.shape == (0, 1600)
+    assert kernels.LAUNCHES["ldpc_layered"] == before

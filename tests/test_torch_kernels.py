@@ -17,6 +17,7 @@ import torch
 from mercury_tpu.core.geometry import build_geometry
 from mercury_tpu.dsp import pallas_kernels
 from mercury_tpu_torch.dsp import kernels
+from mercury_tpu_torch.fec import ldpc
 
 
 @pytest.fixture(scope="module")
@@ -237,8 +238,14 @@ def test_cpu_tensors_take_the_plain_versions(geom):
     torch.testing.assert_close(
         kernels.pilot_cand_score(bb, idx0, idx0 % 2, pil),
         kernels.pilot_cand_score_ref(bb, idx0, idx0 % 2, pil), rtol=0, atol=0)
+    plan = ldpc.pack_plan(4)
+    llr = torch.randn(2, plan.n) * 4.0
+    for got, want in zip(kernels.ldpc_layered(llr, plan, 3, soft=True),
+                         kernels.layered_decode_ref(llr, plan, 3, soft=True)):
+        assert torch.equal(got, want)
     assert set(kernels.LAUNCHES) == {"mix_fir_decimate", "deep_mf_score",
-                                     "deep_mf_max", "pilot_cand_score"}
+                                     "deep_mf_max", "pilot_cand_score",
+                                     "ldpc_layered"}
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.mix_fir_decimate(pb.to("meta"), osc.to("meta"),
@@ -252,3 +259,5 @@ def test_cpu_tensors_take_the_plain_versions(geom):
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.pilot_cand_score(bb.to("meta"), idx0.to("meta"),
                                  idx0.to("meta"), pil.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.ldpc_layered(llr.to("meta"), plan, 3)

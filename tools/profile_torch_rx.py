@@ -12,8 +12,10 @@ candidate (to count the rows it loses), 3 warm-up receives, 10 timed
 receives (host clock around the receive, ending in a synchronize: min /
 median / max), then one receive under torch.profiler: device busy (the
 table's "Self CUDA time total"; a sum over rows would count an aten op and
-its kernel twice), idle share = 1 - busy / median receive, self CPU total
-and the top device items. With --out, the table's top 25 rows go to
+its kernel twice), idle share = 1 - busy / median receive, self CPU total,
+the device operations, the hand kernels' launches (kernels.LAUNCHES) and
+the LDPC decode kernel's (ldpc_layered) device time, and the top device
+items. With --out, the table's top 25 rows go to
 DIR/profile_cfg<config>_<esn0>.txt.
 Needs a card; exits 1 without one.
 """
@@ -31,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from mercury_tpu_torch.bench import BATCH, make_buffer
 from mercury_tpu_torch.core.geometry import build_geometry
+from mercury_tpu_torch.dsp import kernels
 from mercury_tpu_torch.modem.rx import RxChain
 
 _UNIT_MS = {"s": 1e3, "ms": 1.0, "us": 1e-3}
@@ -63,10 +66,16 @@ def profile_point(cfg: int, esn0: float, dev: torch.device,
     rx.reset_recovery()
     times = [timed(rx, buf) for _ in range(10)]
     rec = {k: v // 10 for k, v in rx.recovery.items()}
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         rx.receive(buf)
         torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    dev_ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ldpc_ms = sum(e.time_range.elapsed_us() for e in dev_ops
+                  if "ldpc_layered" in e.name) / 1e3
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=25)
     if out is not None:
@@ -88,7 +97,9 @@ def profile_point(cfg: int, esn0: float, dev: torch.device,
     print(f"  receive ms min / median / max of 10: {min(times):.2f} / "
           f"{med:.2f} / {max(times):.2f}; profiled receive: device busy "
           f"{busy:.3f} ms, idle share {1 - busy / med:.3f}, self CPU "
-          f"{total_ms(table, 'Self CPU'):.3f} ms")
+          f"{total_ms(table, 'Self CPU'):.3f} ms, {len(dev_ops)} device "
+          f"operations; launches {launches}; ldpc_layered "
+          f"{ldpc_ms:.3f} ms of the device time")
     print("\n".join(table.splitlines()[:14]))
 
 
