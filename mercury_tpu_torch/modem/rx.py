@@ -47,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mercury_tpu_torch import obs
 from mercury_tpu_torch.convert import resolve_device, rx_state_from_numpy
 from mercury_tpu_torch.core import crc as crc_mod
 from mercury_tpu_torch.core import hostdsp
@@ -786,14 +787,17 @@ class RxChain(nn.Module):
         values of the state's tensors and whether they converged; each row
         takes its new values. -> (state, converged)."""
         for _ in range(passes):
-            rows = torch.nonzero(~conv)[:, 0]
-            if rows.numel() == 0:
+            with obs.span("rx.read"):
+                rows = torch.nonzero(~conv)[:, 0]
+            n_rows = rows.numel()
+            if n_rows == 0:
                 break
-            self.recovery[key] += rows.numel()
-            new, conv2 = redecode(rows, state)
-            state = tuple(t.index_copy(0, rows, n)
-                          for t, n in zip(state, new))
-            conv = conv.index_copy(0, rows, conv2)
+            self.recovery[key] += n_rows
+            with obs.span("rx.recovery", n_rows):
+                new, conv2 = redecode(rows, state)
+                state = tuple(t.index_copy(0, rows, n)
+                              for t, n in zip(state, new))
+                conv = conv.index_copy(0, rows, conv2)
         return state, conv
 
     # ------------------------------------------------------------------
@@ -1392,17 +1396,24 @@ class RxChain(nn.Module):
         with ops.full_fp32_matmul():
             if self.geom.spec.is_mfsk:
                 return self._receive_mfsk(pb, sync_limit)
-            acq = self._acquire(pb, sync_limit, stage)
+            with obs.span("rx.acquire", device=self.device):
+                acq = self._acquire(pb, sync_limit, stage)
             if stage in ("sync", "arb"):
                 return acq
             delay, coarse_cfo, metric, rescue = acq
             if stage == "refine":
                 return delay, coarse_cfo, metric
-            out = self._decode_from(pb, delay, coarse_cfo, metric, stage)
-            if stage == "hyp" or rescue is None or bool(out.crc_ok.all()):
+            with obs.span("rx.decode", device=self.device):
+                out = self._decode_from(pb, delay, coarse_cfo, metric, stage)
+            if stage == "hyp" or rescue is None:
+                return out
+            with obs.span("rx.read"):
+                all_ok = bool(out.crc_ok.all())
+            if all_ok:
                 return out
             delay2, cfo2, have2 = rescue
-            out2 = self._decode_from(pb, delay2, cfo2, metric)
+            with obs.span("rx.decode", device=self.device):
+                out2 = self._decode_from(pb, delay2, cfo2, metric)
         use2 = ~out.crc_ok & out2.crc_ok & have2
         merged = {}
         for f in dataclasses.fields(RxResult):

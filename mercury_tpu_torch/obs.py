@@ -1,60 +1,229 @@
-"""Observability: metrics registry and RX diagnostics arrays (PyTorch port
-of the JAX package's `obs.py`; `Metrics` and `waterfall` are host numpy,
-copied as they are).
+"""Observability: the program's span recorder and RX diagnostics arrays
+(PyTorch port of the JAX package's `obs.py`; `waterfall` is host numpy,
+copied as it is).
 
-Replaces the reference's printf tracing and ImGui visual feeds
-([OFDM-SYNC]/[CHAN-EST]/[GEARSHIFT] logs, waterfall/constellation GUI taps)
-with structured counters/timers and notebook-friendly arrays.
+Spans. The receive and the serving pool mark where their work happens with
+`span(name, n=0, device=False)`:
+
+    rx.acquire         RxChain.receive's front end, sync and refinement
+                       (device extent too)
+    rx.decode          its first decode and the rescue decode, recovery
+                       included (device extent too)
+    rx.recovery        one BICM-ID, DD or MFSK runner-up pass over the rows
+                       that failed; n = those rows
+    rx.read            each host read of a device value inside the receive
+                       (the recovery loop's rows, the rescue test): the
+                       host waiting on the card
+    pool.unpack.build  FusedDevicePool.unpack after its one D2H copy: the
+                       columns and the per-channel RxResults
+
+A span is recorded only while torch.profiler records (its active steps:
+torch.autograd.profiler._is_profiler_enabled) or inside `recording()`;
+otherwise it costs one flag test and records nothing. A recorded span
+keeps its host start and end (time.perf_counter_ns, the clock of
+time.perf_counter) and its n in a bounded ring of numpy columns (the
+oldest are lost once it wraps; no Python object a span), and with device
+set a pair of CUDA events on the current stream, from a small pool, whose
+time apart (the span's extent on the card's timeline, queueing included)
+is read when the spans are. While the profiler records, each span is also
+a torch.profiler.record_function range, so it shows under its name in an
+exported Chrome or Perfetto trace.
+
+Read them with `spans()`: a dict of arrays, oldest first, of the spans
+closed so far (name, start_ns, end_ns, n, device_ms). Under a profiler of
+your own:
+
+    with torch.profiler.profile(...) as prof:
+        pool.unpack(pool.round(block))
+    s = obs.spans()
+    blocked_ms = (s["end_ns"] - s["start_ns"])[s["name"] == "rx.read"].sum() / 1e6
+
+`tools/profile_torch_rx.py` profiles receives the same way; `clear()`
+empties the ring. The benchmark's per-layer metrics read these spans
+(`benchmark/spans.py`).
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
-from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _profiler
+
+CAPACITY = 1 << 16          # spans the ring keeps
+EVENT_PAIRS = 64            # CUDA event pairs, reused in turn
+_OFF = nullcontext()
 
 
-class Metrics:
-    """Process-wide counters, gauges, and stage timers."""
+class _Ring:
+    """The recorded spans: one row a span, row = seq % capacity."""
+
+    def __init__(self, capacity: int):
+        self.capacity = int(capacity)
+        self.seq = np.full(capacity, -1, np.int64)
+        self.name = np.zeros(capacity, np.int32)
+        self.start = np.zeros(capacity, np.int64)
+        self.end = np.full(capacity, -1, np.int64)
+        self.n = np.zeros(capacity, np.int64)
+        self.slot = np.full(capacity, -1, np.int32)
+        self.count = itertools.count()      # next() is atomic under the GIL
+
+
+_ring = _Ring(CAPACITY)
+_names: dict[str, int] = {}
+_name_list: list[str] = []
+_forced = 0
+_local = threading.local()
+# event pair k: (device, start event, end event), and the span that holds it
+_pairs: list = [None] * EVENT_PAIRS
+_pair_seq = np.full(EVENT_PAIRS, -1, np.int64)
+_pair_count = itertools.count()
+
+
+def _name_id(name: str) -> int:
+    i = _names.get(name)
+    if i is None:
+        i = _names[name] = len(_name_list)
+        _name_list.append(name)
+    return i
+
+
+def _stream(device):
+    """The CUDA stream a device span records on, or None (no card)."""
+    if device is True:
+        return (torch.cuda.current_stream()
+                if torch.cuda.is_available() else None)
+    if isinstance(device, torch.device) and device.type == "cuda":
+        return torch.cuda.current_stream(device)
+    return None
+
+
+class _Span:
+    """An open span; one a nesting depth a thread, made once and reused."""
+
+    __slots__ = ("stack", "seq", "slot", "stream", "rf")
+
+    def __init__(self, stack):
+        self.stack = stack
+        self.rf = None
+
+    def open(self, name: str, n: int, device):
+        ring = _ring
+        seq = self.seq = next(ring.count)
+        row = seq % ring.capacity
+        ring.seq[row] = seq
+        ring.name[row] = _name_id(name)
+        ring.n[row] = n
+        ring.end[row] = -1
+        ring.slot[row] = self.slot = -1
+        if _profiler._is_profiler_enabled:
+            self.rf = _profiler.record_function(name)
+            self.rf.__enter__()
+        ring.start[row] = time.perf_counter_ns()
+        stream = self.stream = _stream(device) if device else None
+        if stream is not None:
+            k = next(_pair_count) % EVENT_PAIRS
+            pair = _pairs[k]
+            if pair is None or pair[0] != stream.device:
+                pair = _pairs[k] = (stream.device,
+                                    torch.cuda.Event(enable_timing=True),
+                                    torch.cuda.Event(enable_timing=True))
+            pair[1].record(stream)
+            _pair_seq[k] = seq
+            ring.slot[row] = self.slot = k
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.stream is not None:
+            _pairs[self.slot][2].record(self.stream)
+            self.stream = None
+        t = time.perf_counter_ns()
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+            self.rf = None
+        row = self.seq % _ring.capacity
+        if _ring.seq[row] == self.seq:      # not overwritten by a wrap
+            _ring.end[row] = t
+        self.stack.depth -= 1
+        return False
+
+
+class _Stack:
+    """A thread's open spans."""
 
     def __init__(self):
-        self.counters: dict[str, int] = defaultdict(int)
-        self.gauges: dict[str, float] = {}
-        self.timings: dict[str, list[float]] = defaultdict(list)
-
-    def count(self, name: str, inc: int = 1) -> None:
-        self.counters[name] += inc
-
-    def gauge(self, name: str, value: float) -> None:
-        self.gauges[name] = value
-
-    @contextmanager
-    def timer(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.timings[name].append(time.perf_counter() - t0)
-
-    def report(self) -> str:
-        lines = ["== counters =="]
-        for k in sorted(self.counters):
-            lines.append(f"  {k}: {self.counters[k]}")
-        lines.append("== gauges ==")
-        for k in sorted(self.gauges):
-            lines.append(f"  {k}: {self.gauges[k]:.4g}")
-        lines.append("== timings (ms: mean / p50 / max / n) ==")
-        for k in sorted(self.timings):
-            t = np.array(self.timings[k]) * 1000
-            lines.append(f"  {k}: {t.mean():.2f} / {np.median(t):.2f} / "
-                         f"{t.max():.2f} / {len(t)}")
-        return "\n".join(lines)
+        self.depth = 0
+        self.spans: list[_Span] = []
 
 
-METRICS = Metrics()
+def _open(name: str, n: int, device) -> _Span:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = _Stack()
+    if stack.depth == len(stack.spans):
+        stack.spans.append(_Span(stack))
+    h = stack.spans[stack.depth].open(name, n, device)
+    stack.depth += 1
+    return h
+
+
+def span(name: str, n: int = 0, device=False):
+    """Context manager marking a stretch of the program's work as `name`,
+    with an integer n carried along (a row count). device: True (the
+    current CUDA device) or a torch.device also times the span on that
+    card's current stream; a CPU device gives no device time. Records
+    only while torch.profiler records or inside recording()."""
+    if not (_profiler._is_profiler_enabled or _forced):
+        return _OFF
+    return _open(name, n, device)
+
+
+@contextmanager
+def recording():
+    """Record spans inside the block whether or not a profiler runs."""
+    global _forced
+    _forced += 1
+    try:
+        yield
+    finally:
+        _forced -= 1
+
+
+def clear() -> None:
+    """Forget every recorded span."""
+    global _ring
+    _ring = _Ring(CAPACITY)
+    _pair_seq.fill(-1)
+
+
+def spans() -> dict:
+    """The closed spans in the ring, oldest first, as arrays: name (str),
+    start_ns and end_ns (time.perf_counter_ns), n, and device_ms, the card's
+    ms from the span's start event to its end event (NaN for a span
+    without its events: no device asked, or their pair reused since);
+    device_ms is None when no span has a device time (always off the
+    card). Waits for the card to reach each end event it reads."""
+    ring = _ring
+    rows = np.flatnonzero((ring.seq >= 0) & (ring.end >= 0))
+    rows = rows[np.argsort(ring.seq[rows], kind="stable")]
+    dev = np.full(rows.size, np.nan)
+    for i in np.flatnonzero(ring.slot[rows] >= 0):
+        row, k = rows[i], ring.slot[rows[i]]
+        if _pair_seq[k] == ring.seq[row]:
+            _dev, start, end = _pairs[k]
+            end.synchronize()
+            dev[i] = start.elapsed_time(end)
+    return {"name": np.array(_name_list, dtype=str)[ring.name[rows]],
+            "start_ns": ring.start[rows], "end_ns": ring.end[rows],
+            "n": ring.n[rows],
+            "device_ms": None if np.isnan(dev).all() else dev}
 
 
 def waterfall(samples: np.ndarray, fs: float = 48000.0, nfft: int = 512,

@@ -35,6 +35,7 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from mercury_tpu_torch import obs
 from mercury_tpu_torch.convert import host_rows
 from mercury_tpu_torch.core.geometry import ModeGeometry
 from mercury_tpu_torch.modem.rx import RxChain, RxResult
@@ -288,15 +289,17 @@ class FusedDevicePool:
 
     def unpack(self, packed: torch.Tensor) -> list[tuple[int, RxResult]]:
         """ONE D2H of the packed result block -> per-channel RxResults."""
-        payload, ok, delay, freq, snr, iters, metric = _columns(
-            packed.cpu().numpy(), self.frame_bytes)
-        out = []
-        for c in np.flatnonzero(ok):
-            i = int(c)
-            out.append((i, RxResult(
-                payload[i: i + 1], ok[i: i + 1], delay[i: i + 1],
-                freq[i: i + 1], snr[i: i + 1], iters[i: i + 1],
-                metric[i: i + 1], np.zeros(1, np.float32))))
+        host = packed.cpu().numpy()
+        with obs.span("pool.unpack.build"):
+            payload, ok, delay, freq, snr, iters, metric = _columns(
+                host, self.frame_bytes)
+            out = []
+            for c in np.flatnonzero(ok):
+                i = int(c)
+                out.append((i, RxResult(
+                    payload[i: i + 1], ok[i: i + 1], delay[i: i + 1],
+                    freq[i: i + 1], snr[i: i + 1], iters[i: i + 1],
+                    metric[i: i + 1], np.zeros(1, np.float32))))
         self.frames_decoded += len(out)
         return out
 

@@ -23,7 +23,11 @@ versions are float32 FFTs. A CONFIG_16 receive on the card equals the
 CPU's in crc_ok, delay and decoded payloads, iters within one sweep. The
 device pools (4 channels of CONFIG_16) and a two-node link session decode
 every frame with their windows and chains on the card. A 2-shard virtual
-mesh on the card decodes as the unsharded receive."""
+mesh on the card decodes as the unsharded receive. A device span of
+mercury_tpu_torch.obs times the card between its events: positive, and
+no longer than the host's wall time to a synchronize after it."""
+
+import time
 
 import numpy as np
 import pytest
@@ -708,3 +712,28 @@ def test_ldpc_layered_kernel_edges(cuda_device):
     bits, iters, ok = dec(llr[:0])
     assert bits.shape == (0, 1600)
     assert kernels.LAUNCHES["ldpc_layered"] == before
+
+
+@pytest.mark.cuda
+def test_device_span_times_the_card(cuda_device):
+    """A device span's ms, from its start event to its end event on the
+    current device's current stream, is positive and no longer than the host's wall time
+    from the span's start to a synchronize after it."""
+    from mercury_tpu_torch import obs
+
+    x = torch.randn(4096, 4096, device=cuda_device)
+    torch.cuda.synchronize()
+    obs.clear()
+    try:
+        with obs.recording():
+            with obs.span("matmul", 1, device=True):
+                y = x @ x
+                y = y @ x
+            torch.cuda.synchronize()
+            done = time.perf_counter_ns()
+        s = obs.spans()
+        assert [str(n) for n in s["name"]] == ["matmul"]
+        wall_ms = (done - int(s["start_ns"][0])) / 1e6
+        assert 0 < s["device_ms"][0] <= wall_ms
+    finally:
+        obs.clear()
