@@ -915,6 +915,25 @@ class RxChain(nn.Module):
         rot = _cis((-(2 * np.pi / self.geom.fs) * f)[:, None, None] * t[None])
         return (tmpl_d.to(torch.complex128)[None] * rot).to(self.cdtype)
 
+    def _refine_bank(self, tmpl_d: torch.Tensor, freqs, mf_d: int):
+        """(_rotated_bank(tmpl_d, freqs, mf_d), freqs as a tensor of the
+        chain's real type) on tmpl_d's device, built once per (mf_d,
+        offsets, device) and kept, as _coherent_banks keeps CONFIG_0's
+        banks: a receive then copies nothing from the host."""
+        key = ("refine", mf_d, tuple(float(f) for f in freqs), tmpl_d.device)
+        bank = self._bank_cache.get(key)
+        if bank is not None:
+            return bank
+        with _CACHE_LOCK:
+            bank = self._bank_cache.get(key)
+            if bank is None:
+                bank = self._bank_cache[key] = (
+                    self._rotated_bank(tmpl_d, freqs, mf_d),
+                    torch.as_tensor(np.asarray(freqs, np.float64),
+                                    dtype=self.real_dtype,
+                                    device=tmpl_d.device))
+        return bank
+
     def _coherent_banks(self, mf_d: int):
         """CONFIG_0's CFO grid [F] (4 Hz steps over +-120 Hz, or +-45 Hz
         with cfo_range "narrow") and its banks at
@@ -1076,9 +1095,7 @@ class RxChain(nn.Module):
             span = 120.0 if self.cfo_range == "wide" else 30.0
             n_h = int(round(span / grid_hz))
             grid_f = np.arange(-n_h, n_h + 1) * grid_hz
-            grid_t = torch.as_tensor(grid_f, dtype=self.real_dtype,
-                                     device=dev)
-            bank_g = self._rotated_bank(tmpl_d, grid_f, mf_d)
+            bank_g, grid_t = self._refine_bank(tmpl_d, grid_f, mf_d)
             win_g = (n_ts // mf_s - lp * s_d) // 2
             seg_g = bb_ts[:, : (2 * win_g + lp * s_d) * mf_s: mf_s]
             delay_g, score_g = sync.matched_filter_refine_bank(
@@ -1099,7 +1116,7 @@ class RxChain(nn.Module):
             # +-grid/2 bank offsets: the refined hypotheses as dense as the
             # 15 Hz grid
             alias_offsets += (DEEP_GRID_HZ / 2, -DEEP_GRID_HZ / 2)
-        tmpl_bank = self._rotated_bank(tmpl_d, alias_offsets, mf_d)
+        tmpl_bank = self._refine_bank(tmpl_d, alias_offsets, mf_d)[0]
         lag = torch.arange(seg_d_len, device=dev)
         seg_rows, start_rows, cfo_rows = [], [], []
         for coarse, cfo_k in zip(cands, cfo_c):

@@ -15,7 +15,8 @@ Spans. The receive and the serving pool mark where their work happens with
                        (the recovery loop's rows, the rescue test): the
                        host waiting on the card
     pool.unpack.build  FusedDevicePool.unpack after its one D2H copy: the
-                       columns and the per-channel RxResults
+                       columns and the per-channel RxResults; n = the
+                       results built
 
 A span is recorded only while torch.profiler records (its active steps:
 torch.autograd.profiler._is_profiler_enabled) or inside `recording()`;

@@ -30,6 +30,7 @@ rows, as the JAX pools return.
 
 from __future__ import annotations
 
+import gc
 from dataclasses import fields
 
 import numpy as np
@@ -81,6 +82,33 @@ def _host_fields(res: RxResult, r: int) -> list[np.ndarray]:
     fb = res.payload.shape[1]
     return [host[:, :fb].astype(np.uint8)] + [
         host[:, fb + i].astype(dt) for i, dt in enumerate(_HOST_DTYPES[1:])]
+
+
+def _results(chans: np.ndarray, cols) -> list[tuple[int, RxResult]]:
+    """(channel, one-row RxResult) pairs of the rows whose ok column is
+    set, in row order. cols: RxResult's fields as host columns of the rows
+    ([R] or [R, frame_bytes] each, in its order; without mean_h it reads
+    0), chans [R] the rows' channels. A result's fields are [1] or
+    [1, frame_bytes] rows of the columns (of a copy of the ok rows where
+    some are not ok), split in C; no two results share memory. The cyclic
+    collector is paused while the results are made (each result and pair
+    is a tracked object, so thousands of them set off collections) and
+    left as it was found."""
+    keep = np.flatnonzero(cols[1])
+    n = len(keep)
+    if n < len(chans):
+        chans = chans[keep]
+        cols = [c[keep] for c in cols]
+    if len(cols) < len(_HOST_DTYPES):
+        cols = [*cols, np.zeros(n, np.float32)]
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        rows = [list(c.reshape(n, 1, *c.shape[1:])) for c in cols]
+        return list(zip(chans.tolist(), map(RxResult, *rows)))
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def _to_device(host, device: torch.device, stream=None) -> torch.Tensor:
@@ -176,16 +204,11 @@ class DeviceStreamPool:
         self.rows_dispatched += r
         cols = _host_fields(res, r)
         ok, delays = cols[1], cols[2]
-        out: list[tuple[int, RxResult]] = []
-        for i in range(r):
-            c = int(chans[i])
-            if ok[i]:
-                out.append((c, RxResult(*(f[i: i + 1] for f in cols))))
-                self._ftr[c] = max(int(delays[i]) // self.sym_len
-                                   + self.frame_syms, 1)
-            else:
-                self._ftr[c] = self.idle_rearm
-            self._ready[c] = False
+        self._ftr[chans] = np.where(
+            ok, np.maximum(delays // self.sym_len + self.frame_syms, 1),
+            self.idle_rearm)
+        self._ready[chans] = False
+        out = _results(chans, cols)
         self.frames_decoded += len(out)
         return out
 
@@ -208,8 +231,9 @@ class FusedDevicePool:
     (no gather/bucketing — in lockstep uniform-block serving all channels
     are ready each round anyway); non-ready rows are decoded and masked.
     next_block (double buffering) uploads round r+1's chunk on a side CUDA
-    stream right after round r is issued; the next round waits on its
-    event before it reads the chunk.
+    stream as soon as round r has taken its own, before its receive is
+    issued, so the upload runs under the round's kernels; the next round
+    waits on its event before it reads the chunk.
     """
 
     def __init__(self, geom: ModeGeometry, n_channels: int,
@@ -235,6 +259,7 @@ class FusedDevicePool:
         self._pending = None
         self.frames_decoded = 0
         self.batched_dispatches = 0
+        self.prefetched_rounds = 0      # rounds whose chunk a prefetch gave
 
     def prefetch(self, block: np.ndarray) -> None:
         """Start uploading the NEXT round's chunk (double buffering), on
@@ -251,6 +276,7 @@ class FusedDevicePool:
             return _to_device(block, self.device)
         chunk, event = self._pending
         self._pending = None
+        self.prefetched_rounds += 1
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
@@ -267,6 +293,9 @@ class FusedDevicePool:
         assert block.shape[1] % self.sym_len == 0, \
             "FusedDevicePool feeds whole symbols"
         chunk = self._chunk(block)
+        if next_block is not None:
+            # the next upload runs on the side stream under this round
+            self.prefetch(next_block)
         n = chunk.shape[-1]
         k = n // self.sym_len
         self.windows, self._spare = (
@@ -282,24 +311,15 @@ class FusedDevicePool:
                                ).to(torch.int32)
         packed = _pack(res, ok)
         self.batched_dispatches += 1
-        if next_block is not None:
-            # issue the next upload while the round's kernels run
-            self.prefetch(next_block)
         return packed
 
     def unpack(self, packed: torch.Tensor) -> list[tuple[int, RxResult]]:
         """ONE D2H of the packed result block -> per-channel RxResults."""
         host = packed.cpu().numpy()
-        with obs.span("pool.unpack.build"):
-            payload, ok, delay, freq, snr, iters, metric = _columns(
-                host, self.frame_bytes)
-            out = []
-            for c in np.flatnonzero(ok):
-                i = int(c)
-                out.append((i, RxResult(
-                    payload[i: i + 1], ok[i: i + 1], delay[i: i + 1],
-                    freq[i: i + 1], snr[i: i + 1], iters[i: i + 1],
-                    metric[i: i + 1], np.zeros(1, np.float32))))
+        n_ok = int(np.count_nonzero(host[:, self.frame_bytes]))
+        with obs.span("pool.unpack.build", n_ok):
+            out = _results(np.arange(host.shape[0]),
+                           _columns(host, self.frame_bytes))
         self.frames_decoded += len(out)
         return out
 
@@ -361,16 +381,10 @@ class StreamPool:
         self.rows_dispatched += r
         cols = _host_fields(res, r)
         ok, delays = cols[1], cols[2]
-        out: list[tuple[int, RxResult]] = []
-        rearm = np.empty(r, np.int32)
-        for i in range(r):
-            if ok[i]:
-                out.append((int(chans[i]),
-                            RxResult(*(f[i: i + 1] for f in cols))))
-                rearm[i] = max(int(delays[i]) // self.sym_len
-                               + self.frame_syms, 1)
-            else:
-                rearm[i] = self.idle_rearm
+        rearm = np.where(
+            ok, np.maximum(delays // self.sym_len + self.frame_syms, 1),
+            self.idle_rearm).astype(np.int32)
+        out = _results(chans, cols)
         self.frames_decoded += len(out)
         self.pool.arm_many(chans, rearm)
         return out

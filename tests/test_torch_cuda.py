@@ -22,7 +22,9 @@ matched-filter kernels multiply in TF32 on the tensor cores; the plain
 versions are float32 FFTs. A CONFIG_16 receive on the card equals the
 CPU's in crc_ok, delay and decoded payloads, iters within one sweep. The
 device pools (4 channels of CONFIG_16) and a two-node link session decode
-every frame with their windows and chains on the card. A 2-shard virtual
+every frame with their windows and chains on the card; a clean CONFIG_9
+FusedDevicePool round issues nothing that makes the host wait on the card
+(torch.cuda.set_sync_debug_mode("error")). A 2-shard virtual
 mesh on the card decodes as the unsharded receive. A device span of
 mercury_tpu_torch.obs times the card between its events: positive, and
 no longer than the host's wall time to a synchronize after it."""
@@ -550,6 +552,31 @@ def test_device_pools_on_card_decode_every_channel(cuda_device):
         for c, res in fused.unpack(packed):
             got.setdefault(c, bytes(res.payload[0]))
     assert got == {c: bytes(payloads[c]) for c in range(4)}
+
+
+@pytest.mark.cuda
+def test_fused_round_on_card_never_synchronizes(cuda_device):
+    """A clean CONFIG_9 FusedDevicePool round of 4 channels, its next
+    block's upload included, makes no call that blocks the host on the
+    card: a per-round synchronize would keep the host from issuing ahead.
+    The rounds before it fill the chain's caches."""
+    from mercury_tpu_torch.scale import serve
+
+    g = build_geometry(9)
+    pool = serve.FusedDevicePool(g, 4, rx=RxChain(g, device=cuda_device))
+    payloads, blocks = _pool_streams(g, pool.sym_len, pool.buf_len, 10, 30)
+    assert len(blocks) >= 3
+    for r in range(2):
+        pool.unpack(pool.round(blocks[r], blocks[r + 1]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = pool.round(blocks[2], blocks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = {c: bytes(res.payload[0]) for c, res in pool.unpack(packed)}
+    assert got == {c: bytes(payloads[c]) for c in range(4)}
+    assert pool.prefetched_rounds == 2
 
 
 @pytest.mark.cuda

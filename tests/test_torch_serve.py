@@ -8,7 +8,14 @@ payload, ok and delay, with iters within +-1 (ROADMAP §3: LDPC sweeps are
 not bit-reproducible across frameworks), freq within 0.01 Hz, snr within
 0.05 dB (the two estimators differ in the last digits; ROADMAP §3) and the
 sync metric within 1e-5 (the two differ by at most 3.6e-7 on these
-blocks)."""
+blocks). The pools' shared result build (`serve._results`) gives what the
+per-row construction it replaced gave, with no two results sharing memory;
+FusedDevicePool.round issues the next block's upload before the receive
+and counts the rounds whose chunk a prefetch gave; the receive's refine
+banks are built once a chain, with the results of a chain that builds them
+anew each receive."""
+
+import gc
 
 import numpy as np
 import pytest
@@ -19,7 +26,7 @@ from mercury_tpu.modem.rx import RxChain as JaxRx
 from mercury_tpu.scale import serve as jserve
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.core.geometry import build_geometry
-from mercury_tpu_torch.modem.rx import RxChain
+from mercury_tpu_torch.modem.rx import RxChain, RxResult
 from mercury_tpu_torch.modem.tx import TxChain
 from mercury_tpu_torch.scale import serve
 
@@ -179,3 +186,167 @@ def test_fused_device_pool_matches_jax():
     assert decoded == {c: bytes(payloads[c]) for c in range(4)}
     assert pool.frames_decoded == jpool.frames_decoded == 4
     assert pool.batched_dispatches == jpool.batched_dispatches == n_rounds
+
+
+def _per_row(chans, cols):
+    """The per-row construction the shared build replaced: one RxResult of
+    one-row slices for each ok row (mean_h a fresh zero where the columns
+    leave it out)."""
+    out = []
+    for i in range(len(chans)):
+        if cols[1][i]:
+            fs = [f[i: i + 1] for f in cols]
+            if len(fs) < 8:
+                fs.append(np.zeros(1, np.float32))
+            out.append((int(chans[i]), RxResult(*fs)))
+    return out
+
+
+@pytest.mark.parametrize("form", ["fused", "step"])
+@pytest.mark.parametrize("mask", ["all", "none", "mixed"])
+def test_results_build_matches_per_row(mask, form):
+    """serve._results against the per-row construction, on FusedDevicePool's
+    packed columns (rows are channels) and on the step pools' host fields
+    (channels given): the same channels in the same order, each field of
+    the same shape, dtype and bytes; a write into one result's payload or
+    mean_h leaves every other result as it was."""
+    rng = np.random.default_rng(5)
+    n, fb = 37, 98
+    ok = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+          "mixed": rng.random(n) < 0.6}[mask]
+    if form == "fused":
+        packed = rng.integers(0, 256, (n, fb + 21)).astype(np.uint8)
+        packed[:, fb] = ok
+        chans = np.arange(n)
+        cols = serve._columns(packed, fb)
+    else:
+        chans = rng.permutation(200)[:n]
+        cols = [rng.integers(0, 256, (n, fb)).astype(np.uint8), ok,
+                rng.integers(0, 5000, n).astype(np.int32),
+                *(rng.standard_normal((2, n)).astype(np.float32)),
+                rng.integers(0, 50, n).astype(np.int32),
+                *(rng.standard_normal((2, n)).astype(np.float32))]
+    got = serve._results(chans, cols)
+    want = _per_row(chans, cols)
+    assert [c for c, _ in got] == [c for c, _ in want]
+    assert len(got) == int(ok.sum())
+    for (_, a), (_, b) in zip(got, want):
+        for name in RxResult.__dataclass_fields__:
+            x, y = getattr(a, name), getattr(b, name)
+            assert x.shape == y.shape and x.dtype == y.dtype, name
+            assert x.tobytes() == y.tobytes(), name
+    before = [[getattr(r, f).copy() for f in ("payload", "mean_h")]
+              for _, r in got]
+    for k, (_, r) in enumerate(got):
+        r.payload[...] = 255 - before[k][0]
+        r.mean_h[...] = 1.0 + k
+        for j, (_, other) in enumerate(got):
+            if j != k:
+                assert other.payload.tobytes() == before[j][0].tobytes()
+                assert other.mean_h.tobytes() == before[j][1].tobytes()
+        r.payload[...] = before[k][0]
+        r.mean_h[...] = before[k][1]
+
+
+@pytest.mark.parametrize("collecting", [True, False])
+def test_results_build_leaves_collector_as_found(collecting):
+    """The build pauses the cyclic collector and leaves it as it found it,
+    on or off."""
+    packed = np.zeros((5, 98 + 21), np.uint8)
+    packed[:, 98] = 1
+    was = gc.isenabled()
+    (gc.enable if collecting else gc.disable)()
+    try:
+        out = serve._results(np.arange(5), serve._columns(packed, 98))
+        assert gc.isenabled() == collecting
+    finally:
+        (gc.enable if was else gc.disable)()
+    assert [c for c, _ in out] == list(range(5))
+
+
+class _StubRx:
+    """A receive chain that decodes nothing and notes, at each receive,
+    whether its pool already holds the next block's upload."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, frame_bytes: int):
+        self.frame_bytes = frame_bytes
+        self.pool = None
+        self.pending = []
+
+    def receive(self, windows):
+        self.pending.append(self.pool._pending is not None)
+        b = windows.shape[0]
+        z = torch.zeros(b)
+        return RxResult(torch.zeros((b, self.frame_bytes), dtype=torch.uint8),
+                        torch.zeros(b, dtype=torch.bool),
+                        torch.zeros(b, dtype=torch.int32), z, z,
+                        torch.zeros(b, dtype=torch.int32), z, z)
+
+
+def test_fused_round_prefetches_before_receive():
+    """round(block, next_block) issues the next upload before it calls the
+    receive, and prefetched_rounds counts the rounds whose chunk came from
+    a prefetch (not the first round's, nor one after a round without
+    next_block)."""
+    g = build_geometry(9, with_pre_eq=False)
+    stub = _StubRx(g.frame_bytes)
+    pool = serve.FusedDevicePool(g, 3, rx=stub)
+    stub.pool = pool
+    blk = 2 * pool.sym_len
+    rng = np.random.default_rng(1)
+    blocks = [rng.standard_normal((3, blk)).astype(np.float32)
+              for _ in range(4)]
+    counts = []
+    for r, nxt in enumerate([blocks[1], blocks[2], None, None]):
+        pool.round(blocks[r], nxt)
+        np.testing.assert_array_equal(pool.windows[:, -blk:].numpy(),
+                                      blocks[r])
+        counts.append(pool.prefetched_rounds)
+    assert stub.pending == [True, True, False, False]
+    assert counts == [0, 1, 2, 2]
+    assert pool._pending is None
+
+
+def _capture(cfg: int, rows: int, seed: int) -> np.ndarray:
+    """rows receive buffers of CONFIG_cfg, each a frame at a lead of
+    (2 + row) symbols in white noise."""
+    g = build_geometry(cfg)
+    rng = np.random.default_rng(seed)
+    _, frames = _frames(rows, rng, cfg=cfg)
+    sym = g.nofdm * g.interp
+    buf = (2e-3 * rng.standard_normal(
+        (rows, g.nofdm * g.buffer_nsymb * g.interp))).astype(np.float32)
+    for r in range(rows):
+        lead = (2 + r) * sym
+        buf[r, lead: lead + frames.shape[1]] += frames[r]
+    return buf
+
+
+@pytest.mark.parametrize("cfg", [9, 3])
+def test_refine_bank_built_once_per_chain(cfg, monkeypatch):
+    """Over two receives a chain builds its refine banks once (CONFIG_9:
+    the alias bank; CONFIG_3: that and the deep-sync grid's), and its
+    results are bit-identical to a chain's whose bank cache is emptied
+    before each receive."""
+    g = build_geometry(cfg)
+    kept, fresh = RxChain(g, device="cpu"), RxChain(g, device="cpu")
+    calls = []
+    real = RxChain._rotated_bank
+
+    def counted(self, *args, **kw):
+        if self is kept:
+            calls.append(args[1])
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(RxChain, "_rotated_bank", counted)
+    for seed in (1, 2):
+        pb = torch.from_numpy(_capture(cfg, 2, seed))
+        a = kept.receive(pb)
+        fresh._bank_cache.clear()
+        b = fresh.receive(pb)
+        assert a.crc_ok.all()
+        for name in RxResult.__dataclass_fields__:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+        assert len(calls) == (1 if cfg == 9 else 2)
