@@ -1402,15 +1402,16 @@ class RxChain(nn.Module):
         "refine" (delay, coarse CFO, metric) and "hyp" (equalized grid,
         variance, freq) of the first decode.
 
-        On the coherent deep-acquisition path (CONFIG_0), when a row fails
-        its CRC the whole batch is decoded once more at the runner-up
-        candidate, and a row takes that result where it passes and its own
-        did not. Deciding whether to run that decode reads crc_ok on the host
-        (one device sync per call on that path). On an MFSK mode the rows
-        that fail are decoded once more at the runner-up sync candidate
-        (_receive_mfsk); which rows failed is likewise read on the host.
-        The JAX chain decodes the whole batch again instead; a row's result
-        depends on no other row, so the outputs are the same."""
+        On the coherent deep-acquisition path (CONFIG_0), the rows that
+        fail their CRC and have an eligible runner-up candidate are decoded
+        once more at it, and such a row takes that result where it passes.
+        Which rows those are is read on the host (one device sync per call
+        on that path); none is decoded again when there are none. On an
+        MFSK mode the rows that fail are decoded once more at the runner-up
+        sync candidate (_receive_mfsk); which rows failed is likewise read
+        on the host. The JAX chain decodes the whole batch again instead; a
+        row's result depends on no other row, so the outputs are the
+        same."""
         if stage not in STAGES:
             raise ValueError(f"stage must be one of {STAGES}")
         pb = self._as_buffer(pb_buffer)
@@ -1428,18 +1429,20 @@ class RxChain(nn.Module):
                 out = self._decode_from(pb, delay, coarse_cfo, metric, stage)
             if stage == "hyp" or rescue is None:
                 return out
-            with obs.span("rx.read"):
-                all_ok = bool(out.crc_ok.all())
-            if all_ok:
-                return out
             delay2, cfo2, have2 = rescue
-            with obs.span("rx.rescue", pb.shape[0], device=self.device):
+            with obs.span("rx.read"):
+                rows = torch.nonzero(~out.crc_ok & have2)[:, 0]
+            n_rows = rows.numel()
+            if n_rows == 0:
+                return out
+            with obs.span("rx.rescue", n_rows, device=self.device):
+                pb2 = pb if n_rows == pb.shape[0] else pb.index_select(0, rows)
                 with obs.span("rx.decode", device=self.device):
-                    out2 = self._decode_from(pb, delay2, cfo2, metric)
-                use2 = ~out.crc_ok & out2.crc_ok & have2
-                merged = {}
+                    out2 = self._decode_from(pb2, delay2[rows], cfo2[rows],
+                                             metric[rows])
+                # out is this call's own: its rows are overwritten in place
                 for f in dataclasses.fields(RxResult):
                     a1, a2 = getattr(out, f.name), getattr(out2, f.name)
-                    merged[f.name] = torch.where(
-                        use2.reshape((-1,) + (1,) * (a1.ndim - 1)), a2, a1)
-                return RxResult(**merged)
+                    use2 = out2.crc_ok.reshape((-1,) + (1,) * (a1.ndim - 1))
+                    a1.index_copy_(0, rows, torch.where(use2, a2, a1[rows]))
+                return out

@@ -12,13 +12,14 @@ Spans. The receive and the serving pool mark where their work happens with
                        n = the rows scanned (device extent too)
     rx.decode          its first decode and the rescue decode, recovery
                        included (device extent too)
-    rx.rescue          CONFIG_0's runner-up decode of the whole batch and
-                       the merge, only where a row failed its CRC; n = the
-                       rows decoded again (device extent too)
+    rx.rescue          CONFIG_0's runner-up decode of the failed rows and
+                       the merge, only where a row with a runner-up failed
+                       its CRC; n = the rows decoded again (device extent
+                       too)
     rx.recovery        one BICM-ID, DD or MFSK runner-up pass over the rows
                        that failed; n = those rows
     rx.read            each host read of a device value inside the receive
-                       (the recovery loop's rows, the rescue test): the
+                       (the recovery loop's rows, the rescue's rows): the
                        host waiting on the card
     pool.unpack.build  FusedDevicePool.unpack after its one D2H copy: the
                        columns and the per-channel RxResults; n = the

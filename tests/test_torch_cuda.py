@@ -24,12 +24,15 @@ CPU's in crc_ok, delay and decoded payloads, iters within one sweep. The
 device pools (4 channels of CONFIG_16) and a two-node link session decode
 every frame with their windows and chains on the card; a clean CONFIG_9
 FusedDevicePool round issues nothing that makes the host wait on the card
-(torch.cuda.set_sync_debug_mode("error")). A 2-shard virtual
+(torch.cuda.set_sync_debug_mode("error")), and a CONFIG_0 round with a
+blank channel makes one such call, the rescue's read of its rows, and no
+copy from pageable host memory. A 2-shard virtual
 mesh on the card decodes as the unsharded receive. A device span of
 mercury_tpu_torch.obs times the card between its events: positive, and
 no longer than the host's wall time to a synchronize after it."""
 
 import time
+import warnings
 
 import numpy as np
 import pytest
@@ -577,6 +580,60 @@ def test_fused_round_on_card_never_synchronizes(cuda_device):
     got = {c: bytes(res.payload[0]) for c, res in pool.unpack(packed)}
     assert got == {c: bytes(payloads[c]) for c in range(4)}
     assert pool.prefetched_rounds == 2
+
+
+@pytest.mark.cuda
+def test_config0_round_on_card_reads_once(cuda_device):
+    """A CONFIG_0 FusedDevicePool round of 4 channels at 6 dB, channel 3
+    noise alone, so its CRC fails and the rescue decodes it again: under
+    torch.cuda.set_sync_debug_mode("warn") the round makes exactly one
+    synchronizing call (the read of the rows to decode again), a profiled
+    round copies nothing from pageable host memory, and both deliver the
+    bytes each of channels 0-2 sent, none on channel 3. The rounds before
+    them arm the pool and fill the chain's caches."""
+    from mercury_tpu_torch.scale import serve
+
+    g = build_geometry(0)
+    pool = serve.FusedDevicePool(g, 4, rx=RxChain(g, device=cuda_device))
+    chunk, lead = 82 * pool.sym_len, 2 * pool.sym_len
+    tx = TxChain(g, device="cpu")
+    rng = np.random.default_rng(5)
+    sigma = sim.sigma_for_esn0(6.0)
+    payloads, blocks = [], []
+    for _ in range(6):
+        pay = rng.integers(0, 256, (4, g.frame_bytes)).astype(np.uint8)
+        frames = tx.transmit(torch.from_numpy(pay)).numpy()
+        block = (sigma * rng.standard_normal((4, chunk))).astype(np.float32)
+        block[:3, lead: lead + frames.shape[1]] += frames[:3]
+        payloads.append(pay)
+        blocks.append(block)
+
+    def delivered(packed, r):
+        got = {c: bytes(res.payload[0]) for c, res in pool.unpack(packed)}
+        assert got == {c: bytes(payloads[r][c]) for c in range(3)}
+
+    for r in range(3):
+        pool.unpack(pool.round(blocks[r], blocks[r + 1]))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            packed = pool.round(blocks[3], blocks[4])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in caught]
+    delivered(packed, 3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        packed = pool.round(blocks[4], blocks[5])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any(n.startswith("Memcpy HtoD") for n in names), "no copy seen"
+    assert not [n for n in names if "Pageable" in n]
+    delivered(packed, 4)
 
 
 @pytest.mark.cuda

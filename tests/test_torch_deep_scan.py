@@ -2,9 +2,11 @@
 pool (CPU, plain versions): the span rx.deep_scan carries the rows scanned;
 rx.rescue opens only where a row failed its CRC, carries the rows decoded
 again and holds the runner-up decode's rx.decode; recording changes no
-result; the CFO grid is a tensor on the chain's device, built once a chain;
-and FusedDevicePool delivers the port's CONFIG_0 frames at Es/N0 -4.5 dB
-with the bytes sent, at their known start."""
+result; the rescue decodes again only the failed rows with a runner-up,
+and every field equals the whole-batch rescue's; the CFO grid is a tensor
+on the chain's device, built once a chain; and FusedDevicePool delivers the
+port's CONFIG_0 frames at Es/N0 -4.5 dB with the bytes sent, at their known
+start."""
 
 import dataclasses
 
@@ -15,7 +17,8 @@ import torch
 from mercury_tpu_torch import obs
 from mercury_tpu_torch.channel import sim
 from mercury_tpu_torch.core.geometry import build_geometry
-from mercury_tpu_torch.modem.rx import RxChain
+from mercury_tpu_torch.dsp import ops
+from mercury_tpu_torch.modem.rx import RxChain, RxResult
 from mercury_tpu_torch.modem.tx import TxChain
 from mercury_tpu_torch.scale import serve
 
@@ -43,21 +46,37 @@ def ring():
     obs.clear()
 
 
-def _capture(g, rows: int, esn0_db: float, seed: int, blank=()):
-    """[rows, buffer] float32: a CONFIG_0 frame at (2 + r) symbols in row r
-    under white noise at esn0_db, none in the rows listed in blank."""
+def _capture(g, kinds, seed: int):
+    """[len(kinds), buffer] float32 of CONFIG_0 under white noise, a row
+    each kind: "clean" its frame at (2 + r) symbols into row r at Es/N0 6
+    dB, "weak" there at -5.5 dB (near threshold), "blank" noise alone at 6
+    dB's level, "decoy" at 0 dB a frame at twice the amplitude one symbol
+    in whose second half of data symbols is another frame's (its pilots
+    intact, its CRC failed), with the row's own frame intact a symbol after
+    it, off the decoy's plateau: the first decode takes the decoy, the
+    runner-up the frame. -> (buffer, payloads)."""
     rng = np.random.default_rng(seed)
-    payloads = rng.integers(0, 256, (rows, g.frame_bytes)).astype(np.uint8)
+    rows = len(kinds)
+    payloads = rng.integers(0, 256, (rows + 2, g.frame_bytes)).astype(np.uint8)
     frames = TxChain(g, device="cpu").transmit(
         torch.from_numpy(payloads)).numpy()
     sym = g.nofdm * g.interp
-    buf = (sim.sigma_for_esn0(esn0_db) * rng.standard_normal(
-        (rows, g.nofdm * g.buffer_nsymb * g.interp))).astype(np.float32)
-    for r in range(rows):
-        if r not in blank:
-            lead = (2 + r) * sym
-            buf[r, lead: lead + frames.shape[1]] += frames[r]
-    return torch.from_numpy(buf), payloads
+    flen = frames.shape[1]
+    pre = g.preamble_nsymb * sym
+    cut = pre + (flen - pre) // sym // 2 * sym
+    n = g.nofdm * g.buffer_nsymb * g.interp
+    esn0 = {"clean": 6.0, "blank": 6.0, "weak": -5.5, "decoy": 0.0}
+    buf = np.empty((rows, n), np.float32)
+    for r, kind in enumerate(kinds):
+        buf[r] = sim.sigma_for_esn0(esn0[kind]) * rng.standard_normal(n)
+        lead = (2 + r) * sym
+        if kind == "decoy":
+            decoy = np.concatenate([frames[rows][:cut], frames[rows + 1][cut:]])
+            buf[r, sym: sym + flen] += 2.0 * decoy
+            lead = 2 * sym + flen
+        if kind != "blank":
+            buf[r, lead: lead + flen] += frames[r]
+    return torch.from_numpy(buf), payloads[:rows]
 
 
 def _names(s):
@@ -67,11 +86,13 @@ def _names(s):
 @pytest.mark.parametrize("blank", [(), (1,)])
 def test_deep_scan_and_rescue_spans(geom, ring, blank):
     """Three rows at 6 dB: the scan's span inside rx.acquire, n = 3; with a
-    row of noise alone (its CRC fails) one rx.rescue, n = 3, after the
-    first decode and around the runner-up's rx.decode; with every row clean
-    none. The results equal a receive's with the recorder off."""
+    row of noise alone (its CRC fails) one rx.rescue, n = 1 (only that row
+    is decoded again), after the first decode and around the runner-up's
+    rx.decode; with every row clean none. The results equal a receive's
+    with the recorder off."""
     rx = RxChain(geom, device="cpu")
-    pb, payloads = _capture(geom, 3, 6.0, 11, blank)
+    pb, payloads = _capture(
+        geom, ["blank" if r in blank else "clean" for r in range(3)], 11)
     off = rx.receive(pb)
     assert obs.spans()["name"].size == 0
     with obs.recording():
@@ -94,12 +115,86 @@ def test_deep_scan_and_rescue_spans(geom, ring, blank):
     if not blank:
         assert len(rescue) == 0 and len(decodes) == 1
         return
-    assert len(rescue) == 1 and s["n"][rescue[0]] == 3
+    assert len(rescue) == 1 and s["n"][rescue[0]] == 1
     assert len(decodes) == 2
     first, second = decodes
     assert s["end_ns"][first] <= s["start_ns"][rescue[0]]
     assert s["start_ns"][rescue[0]] <= s["start_ns"][second]
     assert s["end_ns"][second] <= s["end_ns"][rescue[0]]
+
+
+def _whole_batch_rescue(rx, pb):
+    """The rescue as it decoded the whole batch: every row decoded again at
+    its runner-up (delay, CFO), and a row takes that result where its own
+    CRC failed, the runner-up's passed and it had a runner-up. -> (RxResult,
+    the first decode's crc_ok, eligible)."""
+    with torch.no_grad(), ops.full_fp32_matmul():
+        delay, cfo, metric, (delay2, cfo2, have2) = rx._acquire(pb)
+        out = rx._decode_from(pb, delay, cfo, metric)
+        out2 = rx._decode_from(pb, delay2, cfo2, metric)
+    use2 = ~out.crc_ok & out2.crc_ok & have2
+    merged = {}
+    for f in dataclasses.fields(RxResult):
+        a1, a2 = getattr(out, f.name), getattr(out2, f.name)
+        merged[f.name] = torch.where(
+            use2.reshape((-1,) + (1,) * (a1.ndim - 1)), a2, a1)
+    return RxResult(**merged), out.crc_ok, have2, use2
+
+
+@pytest.mark.parametrize("kinds,no_runner_up", [
+    (("clean", "blank", "weak", "weak", "decoy", "clean", "weak", "blank"),
+     (7,)),
+    (("clean", "clean", "clean"), ()),
+    (("decoy",), ()),
+], ids=["mixed", "clean", "one_failed_row"])
+def test_rescue_decodes_only_the_failed_rows(geom, monkeypatch, kinds,
+                                             no_runner_up):
+    """Every field of the receive equals the whole-batch rescue's, bit for
+    bit; the second decode is called with exactly the rows whose first CRC
+    failed and that have a runner-up (no second decode where there are
+    none), at their runner-up delays; and each decoy row takes the
+    runner-up's result, its own frame's bytes. In the mixed batch (seed 3)
+    one weak row fails and is not rescued, and the acquisition is made to
+    report no runner-up for the last blank row, which then is not decoded
+    again."""
+    rx = RxChain(geom, device="cpu")
+    acquire = RxChain._coherent_acquire
+
+    def without_runner_up(self, *args, **kw):
+        acq = acquire(self, *args, **kw)
+        if len(acq) != 5:
+            return acq
+        have2 = acq[4].clone()
+        have2[list(no_runner_up)] = False
+        return (*acq[:4], have2)
+
+    monkeypatch.setattr(RxChain, "_coherent_acquire", without_runner_up)
+    pb, payloads = _capture(geom, kinds, 3)
+    ref, first_ok, have2, use2 = _whole_batch_rescue(rx, pb)
+    decoys = [r for r, k in enumerate(kinds) if k == "decoy"]
+    assert use2.numpy()[decoys].all()
+    assert not first_ok.numpy()[list(no_runner_up)].any()
+    calls = []
+    real = RxChain._decode_from
+
+    def recorded(self, pb_rows, delay, *args, **kw):
+        calls.append((pb_rows, delay))
+        return real(self, pb_rows, delay, *args, **kw)
+
+    monkeypatch.setattr(RxChain, "_decode_from", recorded)
+    got = rx.receive(pb)
+    for f in dataclasses.fields(RxResult):
+        assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), f.name
+    for r in decoys:
+        assert bytes(got.payload[r].numpy()) == bytes(payloads[r])
+    rows = torch.nonzero(~first_ok & have2)[:, 0]
+    assert len(calls) == (2 if rows.numel() else 1)
+    assert torch.equal(calls[0][0], pb)
+    if rows.numel():
+        with torch.no_grad(), ops.full_fp32_matmul():
+            delay2 = rx._acquire(pb)[3][0]
+        assert torch.equal(calls[1][0], pb[rows])
+        assert torch.equal(calls[1][1], delay2[rows])
 
 
 def test_cfo_grid_built_once_on_the_chains_device(geom, monkeypatch):
@@ -117,7 +212,7 @@ def test_cfo_grid_built_once_on_the_chains_device(geom, monkeypatch):
     monkeypatch.setattr(RxChain, "_rotated_bank", counted)
     grids = []
     for seed in (1, 2):
-        pb, _ = _capture(geom, 2, 6.0, seed)
+        pb, _ = _capture(geom, ("clean", "clean"), seed)
         assert rx.receive(pb).crc_ok.all()
         grids.append(rx._coherent_banks(8)[0])
     assert grids[0] is grids[1]
