@@ -113,6 +113,25 @@ def ofdm_demod(samples: torch.Tensor, pad_map: torch.Tensor, nfft: int,
     return spec[..., pad_map]
 
 
+# guards the fill of every cache that cached() serves: the link's nodes
+# share chains and signalers across threads (ArqTcpServer drives each node
+# from its own)
+_CACHE_LOCK = threading.Lock()
+
+
+def cached(cache: dict, key, build):
+    """cache[key], made by build() on the first call only: looked up, then
+    under one lock looked up again before it is built and stored, so
+    threads that share the cache build each value once."""
+    value = cache.get(key)
+    if value is None:
+        with _CACHE_LOCK:
+            value = cache.get(key)
+            if value is None:
+                value = cache[key] = build()
+    return value
+
+
 # blocks inside full_fp32_matmul, and the setting they found
 _PRECISION_LOCK = threading.Lock()
 _precision_users = 0

@@ -12,7 +12,6 @@ strided "same" form) give.
 from __future__ import annotations
 
 import functools
-import threading
 
 import numpy as np
 import torch
@@ -22,11 +21,6 @@ from mercury_tpu_torch.core import hostdsp
 from mercury_tpu_torch.core.geometry import ModeGeometry, mfsk_params
 from mercury_tpu_torch.dsp import kernels, ops
 from mercury_tpu_torch.modem import mfsk, sync
-
-# guards the oscillator cache's fill: the link's nodes share a signaler
-# across threads
-_CACHE_LOCK = threading.Lock()
-
 
 class PatternSignaler:
     """TX and detection of the ACK and BREAK patterns of one mode geometry.
@@ -72,14 +66,8 @@ class PatternSignaler:
 
     def _osc(self, n: int) -> torch.Tensor:
         """The mixer's oscillator table for n samples, built once."""
-        osc = self._osc_cache.get(n)
-        if osc is None:
-            with _CACHE_LOCK:
-                osc = self._osc_cache.get(n)
-                if osc is None:
-                    osc = self._osc_cache[n] = ops.mixer_table(
-                        n, self.geom.fc, self.geom.fs, self.device)
-        return osc
+        return ops.cached(self._osc_cache, n, lambda: ops.mixer_table(
+            n, self.geom.fc, self.geom.fs, self.device))
 
     @torch.no_grad()
     def _detect(self, pb_buffer, tones: np.ndarray):

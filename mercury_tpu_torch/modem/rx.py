@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,7 +47,7 @@ import torch
 from torch import nn
 
 from mercury_tpu_torch import obs
-from mercury_tpu_torch.convert import resolve_device, rx_state_from_numpy
+from mercury_tpu_torch.convert import resolve_device
 from mercury_tpu_torch.core import crc as crc_mod
 from mercury_tpu_torch.core import hostdsp
 from mercury_tpu_torch.core.geometry import LS_WINDOW, ModeGeometry
@@ -130,6 +129,33 @@ def host_constants(geom: ModeGeometry, deep_sync: bool, dd: bool = False,
     arrays["_crc_a"] = a.astype(np.float32)
     arrays["_crc_c0"] = c0
     return arrays, scalars
+
+
+def rx_buffers(arrays: dict[str, np.ndarray], device=None,
+               real_dtype: torch.dtype = torch.float32
+               ) -> dict[str, torch.Tensor]:
+    """Receive constants (host_constants' arrays, or the same names taken
+    from a JAX chain) -> the chain's buffers on `device` (the card unless
+    given; see resolve_device): complex arrays of the chain's complex type,
+    floating ones of its real type, except the CRC map `_crc_a`, which
+    stays float32, and every other array int64. Floating values pass
+    through float32 (complex64) first, so a float64 chain holds the same
+    constants as a float32 one."""
+    device = resolve_device(device)
+    cdtype = (torch.complex128 if real_dtype == torch.float64
+              else torch.complex64)
+    out = {}
+    for name, arr in arrays.items():
+        arr = np.asarray(arr)
+        if np.iscomplexobj(arr):
+            host, dtype = np.complex64, cdtype
+        elif np.issubdtype(arr.dtype, np.floating):
+            host = np.float32
+            dtype = torch.float32 if name == "_crc_a" else real_dtype
+        else:
+            host, dtype = np.int64, torch.int64
+        out[name] = torch.from_numpy(arr.astype(host)).to(device, dtype)
+    return out
 
 
 def _loo_operator(g: ModeGeometry) -> tuple[np.ndarray, float]:
@@ -262,11 +288,6 @@ def _sync_constants(g: ModeGeometry, deep_sync: bool, arrays: dict) -> None:
 def _cis(theta: torch.Tensor) -> torch.Tensor:
     """e^{j theta} for a real tensor."""
     return torch.complex(torch.cos(theta), torch.sin(theta))
-
-
-# guards the fill of every chain's per-length caches: the link's nodes
-# share chains across threads (ArqTcpServer drives each node from its own)
-_CACHE_LOCK = threading.Lock()
 
 
 class RxChain(nn.Module):
@@ -405,11 +426,7 @@ class RxChain(nn.Module):
         self.mfsk_clamp = float(mfsk_clamp)
         arrays, scalars = host_constants(g, self.deep_sync, self.dd,
                                          self.dd_window)
-        for name, t in rx_state_from_numpy(arrays, device).items():
-            if t.is_floating_point() and name != "_crc_a":
-                t = t.to(real_dtype)
-            elif t.is_complex():
-                t = t.to(self.cdtype)
+        for name, t in rx_buffers(arrays, device, real_dtype).items():
             self.register_buffer(name, t)
         for name, value in scalars.items():     # the estimator's scalars
             setattr(self, name, value)
@@ -459,16 +476,9 @@ class RxChain(nn.Module):
     def _osc_const(self, n: int) -> torch.Tensor:
         """sqrt(2)*exp(+j*2*pi*fc/fs*i) for i < n: float64 phase on the
         host, complex64 on the device, built once per length."""
-        key = (n, self.device)
-        arr = self._osc_cache.get(key)
-        if arr is None:
-            with _CACHE_LOCK:
-                arr = self._osc_cache.get(key)
-                if arr is None:
-                    arr = self._osc_cache[key] = ops.mixer_table(
-                        n, self.geom.fc, self.geom.fs, self.device,
-                        self.cdtype)
-        return arr
+        return ops.cached(
+            self._osc_cache, (n, self.device), lambda: ops.mixer_table(
+                n, self.geom.fc, self.geom.fs, self.device, self.cdtype))
 
     def mix(self, pb: torch.Tensor, freq_offset=0.0) -> torch.Tensor:
         """Passband [B, n] -> complex IQ at fc + freq_offset ([B] or
@@ -921,18 +931,10 @@ class RxChain(nn.Module):
         offsets, device) and kept, as _coherent_banks keeps CONFIG_0's
         banks: a receive then copies nothing from the host."""
         key = ("refine", mf_d, tuple(float(f) for f in freqs), tmpl_d.device)
-        bank = self._bank_cache.get(key)
-        if bank is not None:
-            return bank
-        with _CACHE_LOCK:
-            bank = self._bank_cache.get(key)
-            if bank is None:
-                bank = self._bank_cache[key] = (
-                    self._rotated_bank(tmpl_d, freqs, mf_d),
-                    torch.as_tensor(np.asarray(freqs, np.float64),
-                                    dtype=self.real_dtype,
-                                    device=tmpl_d.device))
-        return bank
+        return ops.cached(self._bank_cache, key, lambda: (
+            self._rotated_bank(tmpl_d, freqs, mf_d),
+            torch.as_tensor(np.asarray(freqs, np.float64),
+                            dtype=self.real_dtype, device=tmpl_d.device)))
 
     def _coherent_banks(self, mf_d: int):
         """CONFIG_0's CFO grid [F] (4 Hz steps over +-120 Hz, or +-45 Hz
@@ -944,14 +946,7 @@ class RxChain(nn.Module):
         (kernels.pilot_bank). Built once per (mf_d, device) and kept, as
         _osc_const keeps the oscillator: a receive then copies nothing from
         the host."""
-        key = (mf_d, self.device)
-        banks = self._bank_cache.get(key)
-        if banks is not None:
-            return banks
-        with _CACHE_LOCK:
-            banks = self._bank_cache.get(key)
-            if banks is not None:
-                return banks
+        def build():
             tmpl_d = self._mf_templates[:, ::mf_d]
             lp, s_d = tmpl_d.shape
             span = 120.0 if self.cfo_range == "wide" else 45.0
@@ -961,12 +956,11 @@ class RxChain(nn.Module):
                                      self._mf_templates.shape[1])
             pil = self._rotated_bank(self._pil_templates[:, ::mf_d], grid,
                                      mf_d)
-            banks = (torch.as_tensor(grid, dtype=self.real_dtype,
-                                     device=self.device),
-                     coh.reshape(len(grid), 1, lp * s_d), pil,
-                     kernels.pilot_bank(pil))
-            self._bank_cache[key] = banks
-        return banks
+            return (torch.as_tensor(grid, dtype=self.real_dtype,
+                                    device=self.device),
+                    coh.reshape(len(grid), 1, lp * s_d), pil,
+                    kernels.pilot_bank(pil))
+        return ops.cached(self._bank_cache, (mf_d, self.device), build)
 
     def _coherent_acquire(self, bb_ts: torch.Tensor, mf_d: int, ts_dec: int,
                           sync_limit: int | None = None, stage: str = "full"):

@@ -21,11 +21,14 @@ in the JAX pool.
         if res.crc_ok: ...
 
 DeviceStreamPool and FusedDevicePool keep the windows on the card as one
-[C, window_len] float32 tensor. Every pool runs its chain on the CUDA card
-unless `device` (or the `rx` chain given) names another; host data moves
-through pinned memory, and each step or round reads its results back in one
-copy (FusedDevicePool: of the JAX pool's packed uint8 block). Per-channel results are `RxResult`s of numpy
-rows, as the JAX pools return.
+[C, window_len] float32 tensor. The three share one core (`_Pool`) and
+one re-arm rule (`rearm`; IDLE_REARM symbols after a decode that delivered
+no frame), and the two unfused pools their step's tail (`_decode_ready`).
+Every pool runs its chain on the CUDA card unless `device` (or the `rx`
+chain given) names another; host data moves through pinned memory, and
+each step or round reads its results back in one copy (FusedDevicePool: of
+the JAX pool's packed uint8 block). Per-channel results are `RxResult`s of
+numpy rows, as the JAX pools return.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ _SCALARS = (("delay", torch.int32), ("freq_offset", torch.float32),
 # RxResult's fields on the host, in its order, as the JAX pools return them
 _HOST_DTYPES = (np.uint8, bool, np.int32, np.float32, np.float32, np.int32,
                 np.float32, np.float32)
+# symbols a channel waits after a decode that delivered no frame
+IDLE_REARM = 4
 
 
 def _pack(res: RxResult, ok: torch.Tensor) -> torch.Tensor:
@@ -73,15 +78,6 @@ def _columns(flat: np.ndarray, frame_bytes: int) -> tuple:
         cols.append(flat[:, off + 4 * i: off + 4 * i + 4]
                     .view(_HOST_DTYPES[2 + i])[:, 0])
     return tuple(cols)
-
-
-def _host_fields(res: RxResult, r: int) -> list[np.ndarray]:
-    """The first r rows of every RxResult field -> numpy columns of the
-    JAX pools' types, read with one host copy."""
-    host = host_rows(*(getattr(res, f.name)[:r] for f in fields(res)))
-    fb = res.payload.shape[1]
-    return [host[:, :fb].astype(np.uint8)] + [
-        host[:, fb + i].astype(dt) for i, dt in enumerate(_HOST_DTYPES[1:])]
 
 
 def _results(chans: np.ndarray, cols) -> list[tuple[int, RxResult]]:
@@ -137,7 +133,62 @@ def _roll(windows: torch.Tensor, chunk: torch.Tensor,
     return torch.cat([windows[:, n:], chunk], dim=-1, out=spare)
 
 
-class DeviceStreamPool:
+def rearm(ok: torch.Tensor, delay: torch.Tensor, sym_len: int,
+          frame_syms: int) -> torch.Tensor:
+    """Each decoded channel's frames_to_read (arq_common.cc:2690-2730): past
+    the frame it delivered (ok), else IDLE_REARM symbols; at least 1."""
+    return torch.clamp(torch.where(
+        ok, torch.div(delay, sym_len, rounding_mode="floor") + frame_syms,
+        IDLE_REARM), min=1)
+
+
+def _bucket(n: int, cap: int) -> int:
+    """n rounded up to a power of two (as the JAX pools bound their
+    compiled shapes), at most cap."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+class _Pool:
+    """The pools' shared core: the geometry, the chain (`rx`, else one built
+    on `device`) and its device, the lengths and the counters."""
+
+    def __init__(self, geom: ModeGeometry, n_channels: int,
+                 rx: RxChain | None = None, device=None):
+        self.geom = geom
+        self.rx = rx or RxChain(geom, device=device)
+        self.device = self.rx.device
+        self.buf_len = geom.nofdm * geom.buffer_nsymb * geom.interp
+        self.sym_len = geom.nofdm * geom.interp
+        self.frame_syms = geom.nsymb + geom.preamble_nsymb
+        self.n_channels = n_channels
+        self.frames_decoded = 0
+        self.batched_dispatches = 0
+
+
+def _decode_ready(pool, rows: torch.Tensor,
+                  chans: np.ndarray) -> tuple[list, np.ndarray]:
+    """The unfused pools' step after the gather: one receive of rows (the
+    ready channels chans, then padding) and one host copy of their fields
+    and re-arm values. -> ((channel, RxResult) pairs, frames_to_read)."""
+    r = len(chans)
+    res = pool.rx.receive(rows)
+    pool.batched_dispatches += 1
+    pool.rows_dispatched += r
+    host = host_rows(*(getattr(res, f.name)[:r] for f in fields(res)),
+                     rearm(res.crc_ok[:r], res.delay[:r], pool.sym_len,
+                           pool.frame_syms))
+    fb = res.payload.shape[1]
+    cols = [host[:, :fb].astype(np.uint8)] + [
+        host[:, fb + i].astype(dt) for i, dt in enumerate(_HOST_DTYPES[1:])]
+    out = _results(chans, cols)
+    pool.frames_decoded += len(out)
+    return out, host[:, -1].astype(np.int64)
+
+
+class DeviceStreamPool(_Pool):
     """Device-resident serving pool: the per-channel windows live on the
     card as one [C, window_len] float32 tensor.
 
@@ -156,24 +207,13 @@ class DeviceStreamPool:
     """
 
     def __init__(self, geom: ModeGeometry, n_channels: int,
-                 rx: RxChain | None = None, idle_rearm: int = 4,
-                 device=None):
-        self.geom = geom
-        self.rx = rx or RxChain(geom, device=device)
-        self.device = self.rx.device
-        g = geom
-        self.buf_len = g.nofdm * g.buffer_nsymb * g.interp
-        self.sym_len = g.nofdm * g.interp
-        self.frame_syms = g.nsymb + g.preamble_nsymb
-        self.n_channels = n_channels
-        self.idle_rearm = idle_rearm
+                 rx: RxChain | None = None, device=None):
+        super().__init__(geom, n_channels, rx, device)
         self.windows = torch.zeros((n_channels, self.buf_len),
                                    dtype=torch.float32, device=self.device)
         self._spare = torch.empty_like(self.windows)
-        self._ftr = np.full(n_channels, g.buffer_nsymb, np.int64)
+        self._ftr = np.full(n_channels, geom.buffer_nsymb, np.int64)
         self._ready = np.zeros(n_channels, bool)
-        self.frames_decoded = 0
-        self.batched_dispatches = 0
         self.rows_dispatched = 0
 
     def feed_block(self, block: np.ndarray) -> None:
@@ -194,26 +234,16 @@ class DeviceStreamPool:
         r = len(chans)
         if r == 0:
             return []
-        bucket = min(StreamPool._bucket(r), self.n_channels)
-        idx = np.zeros(bucket, np.int64)
+        idx = np.zeros(_bucket(r, self.n_channels), np.int64)
         idx[:r] = chans
         rows = torch.index_select(
             self.windows, 0, torch.from_numpy(idx).to(self.device))
-        res = self.rx.receive(rows)
-        self.batched_dispatches += 1
-        self.rows_dispatched += r
-        cols = _host_fields(res, r)
-        ok, delays = cols[1], cols[2]
-        self._ftr[chans] = np.where(
-            ok, np.maximum(delays // self.sym_len + self.frame_syms, 1),
-            self.idle_rearm)
+        out, self._ftr[chans] = _decode_ready(self, rows, chans)
         self._ready[chans] = False
-        out = _results(chans, cols)
-        self.frames_decoded += len(out)
         return out
 
 
-class FusedDevicePool:
+class FusedDevicePool(_Pool):
     """Serving pool with ONE dispatch sequence and ONE D2H per round.
 
     The budget has three line items a bench can measure and sum:
@@ -237,28 +267,17 @@ class FusedDevicePool:
     """
 
     def __init__(self, geom: ModeGeometry, n_channels: int,
-                 rx: RxChain | None = None, idle_rearm: int = 4,
-                 device=None):
-        self.geom = geom
-        self.rx = rx or RxChain(geom, device=device)
-        self.device = self.rx.device
-        g = geom
-        self.buf_len = g.nofdm * g.buffer_nsymb * g.interp
-        self.sym_len = g.nofdm * g.interp
-        self.frame_syms = g.nsymb + g.preamble_nsymb
-        self.n_channels = n_channels
-        self.idle_rearm = idle_rearm
-        self.frame_bytes = g.frame_bytes
+                 rx: RxChain | None = None, device=None):
+        super().__init__(geom, n_channels, rx, device)
+        self.frame_bytes = geom.frame_bytes
         self.windows = torch.zeros((n_channels, self.buf_len),
                                    dtype=torch.float32, device=self.device)
         self._spare = torch.empty_like(self.windows)
-        self.ftr = torch.full((n_channels,), g.buffer_nsymb,
+        self.ftr = torch.full((n_channels,), geom.buffer_nsymb,
                               dtype=torch.int32, device=self.device)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self._pending = None
-        self.frames_decoded = 0
-        self.batched_dispatches = 0
         self.prefetched_rounds = 0      # rounds whose chunk a prefetch gave
 
     def prefetch(self, block: np.ndarray) -> None:
@@ -303,12 +322,9 @@ class FusedDevicePool:
         ready = self.ftr <= k
         res = self.rx.receive(self.windows)
         ok = res.crc_ok & ready
-        rearm = torch.where(
-            ok, torch.div(res.delay, self.sym_len, rounding_mode="floor")
-            + self.frame_syms, self.idle_rearm)
-        self.ftr = torch.where(ready, torch.clamp(rearm, min=1),
-                               torch.clamp(self.ftr - k, min=0)
-                               ).to(torch.int32)
+        self.ftr = torch.where(
+            ready, rearm(ok, res.delay, self.sym_len, self.frame_syms),
+            torch.clamp(self.ftr - k, min=0)).to(torch.int32)
         packed = _pack(res, ok)
         self.batched_dispatches += 1
         return packed
@@ -324,24 +340,13 @@ class FusedDevicePool:
         return out
 
 
-class StreamPool:
+class StreamPool(_Pool):
     def __init__(self, geom: ModeGeometry, n_channels: int,
-                 rx: RxChain | None = None, idle_rearm: int = 4,
-                 device=None):
-        self.geom = geom
-        self.rx = rx or RxChain(geom, device=device)
-        self.device = self.rx.device
-        g = geom
-        self.buf_len = g.nofdm * g.buffer_nsymb * g.interp
-        self.sym_len = g.nofdm * g.interp
-        self.frame_syms = g.nsymb + g.preamble_nsymb
-        self.n_channels = n_channels
-        self.idle_rearm = idle_rearm
+                 rx: RxChain | None = None, device=None):
+        super().__init__(geom, n_channels, rx, device)
         self.pool = WindowPool(n_channels, self.buf_len, self.sym_len)
-        arm0 = np.full(n_channels, g.buffer_nsymb, np.int32)
+        arm0 = np.full(n_channels, geom.buffer_nsymb, np.int32)
         self.pool.arm_many(np.arange(n_channels, dtype=np.int32), arm0)
-        self.frames_decoded = 0
-        self.batched_dispatches = 0
         self.rows_dispatched = 0
 
     def feed(self, channel: int, samples: np.ndarray) -> None:
@@ -354,37 +359,21 @@ class StreamPool:
         native call for the whole pool tick."""
         self.pool.feed_block(block)
 
-    @staticmethod
-    def _bucket(n: int) -> int:
-        b = 1
-        while b < n:
-            b *= 2
-        return b
-
     def step(self) -> list[tuple[int, RxResult]]:
         """Decode every channel whose window countdown elapsed, in ONE
-        batched receive (rows padded to a power-of-two bucket, as the JAX
-        pool bounds its compiled shapes; the rows go to the card in one
-        pinned-memory copy). Returns (channel, single-row RxResult) pairs
-        for channels that decoded a frame; non-decoding ready channels are
-        re-armed a few symbols ahead."""
+        batched receive (rows padded with zero rows to a power-of-two
+        bucket, as the JAX pool bounds its compiled shapes; the rows go to
+        the card in one pinned-memory copy). Returns (channel, single-row
+        RxResult) pairs for channels that decoded a frame; non-decoding
+        ready channels are re-armed IDLE_REARM symbols ahead."""
         rows, chans = self.pool.gather_ready()
         r = len(chans)
         if r == 0:
             return []
-        bucket = min(self._bucket(r), self.n_channels)
+        bucket = _bucket(r, self.n_channels)
         if bucket > r:
             rows = np.concatenate(
                 [rows, np.zeros((bucket - r, self.buf_len), np.float32)])
-        res = self.rx.receive(_to_device(rows, self.device))
-        self.batched_dispatches += 1
-        self.rows_dispatched += r
-        cols = _host_fields(res, r)
-        ok, delays = cols[1], cols[2]
-        rearm = np.where(
-            ok, np.maximum(delays // self.sym_len + self.frame_syms, 1),
-            self.idle_rearm).astype(np.int32)
-        out = _results(chans, cols)
-        self.frames_decoded += len(out)
-        self.pool.arm_many(chans, rearm)
+        out, ftr = _decode_ready(self, _to_device(rows, self.device), chans)
+        self.pool.arm_many(chans, ftr)
         return out

@@ -19,9 +19,10 @@ them. Two axes:
 
 Every shard has a chain of its own (RxChain.replica on its device) and,
 on a card, a CUDA stream of its own. The calling thread drives the shards
-in turn; a receive reads results on the host several times (the LDPC once
-a sweep), so on one card the shards' receives follow one another, while
-the halo copies run under them on a copy stream. A tensor that crosses
+in turn; a receive reads results on the host when it decodes failed rows
+again (the recovery's BICM-ID, DD or MFSK runner-up, CONFIG_0's rescue),
+so on one card the shards' receives follow one another, while the halo
+copies run under them on a copy stream. A tensor that crosses
 streams is handed over with an event wait and record_stream. Neighbour
 copies take the place of ppermute: a copy into a fresh tensor on the
 destination's copy stream, behind an event (a real copy also when both

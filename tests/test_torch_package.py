@@ -13,12 +13,12 @@ import pytest
 import torch
 
 from mercury_tpu_torch import native
-from mercury_tpu_torch.convert import resolve_device, rx_state_from_numpy
+from mercury_tpu_torch.convert import resolve_device
 from mercury_tpu_torch.core.geometry import build_geometry
 from mercury_tpu_torch.link import protocol as P
 from mercury_tpu_torch.link.node import ArqNode
 from mercury_tpu_torch.link.tcp_api import ArqTcpServer
-from mercury_tpu_torch.modem.rx import RxChain
+from mercury_tpu_torch.modem.rx import RxChain, rx_buffers
 from mercury_tpu_torch.modem.tx import TxChain
 from mercury_tpu_torch.scale import serve, shard
 
@@ -95,7 +95,7 @@ def test_imports_and_receives_without_jax():
 
 @pytest.mark.parametrize("make", [
     lambda g: RxChain(g), lambda g: TxChain(g),
-    lambda g: rx_state_from_numpy({}), lambda g: resolve_device(),
+    lambda g: rx_buffers({}), lambda g: resolve_device(),
     lambda g: ArqNode("N0CALL", P.RESPONDER),
     lambda g: ArqTcpServer(base_port=17702),
     lambda g: serve.StreamPool(g, 2), lambda g: serve.DeviceStreamPool(g, 2),

@@ -33,10 +33,9 @@ from mercury_tpu.core.geometry import build_geometry
 from mercury_tpu.core.modes import HIGH_DENSITY, LOW_DENSITY
 from mercury_tpu.modem.rx import RxChain as JaxRx
 from mercury_tpu_torch.channel import sim
-from mercury_tpu_torch.convert import RX_BUFFERS, rx_state_from_numpy
 from mercury_tpu_torch.core.geometry import build_geometry as port_geometry
 from mercury_tpu_torch.dsp import ops
-from mercury_tpu_torch.modem.rx import RxChain
+from mercury_tpu_torch.modem.rx import RxChain, rx_buffers
 from mercury_tpu_torch.modem.tx import TxChain
 
 B = 4
@@ -196,10 +195,10 @@ def check_state_carried(chain, esn0, b=B):
     buffers, load into a port chain and give the same receive results on
     one buffer at esn0 dB."""
     g, jax_rx, rx = chain
-    state = rx_state_from_numpy(
-        {name: np.asarray(getattr(jax_rx, name)) for name in RX_BUFFERS
-         if hasattr(jax_rx, name)}, device="cpu")
     own = rx.state_dict()
+    assert all(hasattr(jax_rx, name) for name in own), sorted(own)
+    state = rx_buffers({name: np.asarray(getattr(jax_rx, name))
+                        for name in own}, device="cpu")
     assert set(own) == set(state)
     for name, t in state.items():
         assert t.dtype == own[name].dtype and torch.equal(t, own[name]), name

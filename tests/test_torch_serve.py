@@ -13,7 +13,8 @@ per-row construction it replaced gave, with no two results sharing memory;
 FusedDevicePool.round issues the next block's upload before the receive
 and counts the rounds whose chunk a prefetch gave; the receive's refine
 banks are built once a chain, with the results of a chain that builds them
-anew each receive."""
+anew each receive; and the three pools, fed the same blocks, deliver the
+same frames round by round with the same countdowns."""
 
 import gc
 
@@ -350,3 +351,48 @@ def test_refine_bank_built_once_per_chain(cfg, monkeypatch):
         for name in RxResult.__dataclass_fields__:
             assert torch.equal(getattr(a, name), getattr(b, name)), name
         assert len(calls) == (1 if cfg == 9 else 2)
+
+
+def _delivered(out) -> set:
+    return {(c, bytes(res.payload[0]), int(res.delay[0])) for c, res in out}
+
+
+@pytest.mark.parametrize("blk_syms", [3, 17])
+def test_pools_agree_round_by_round(blk_syms):
+    """The three pools fed the same CONFIG_9 blocks at 12 dB, sharing one
+    chain: five channels, a frame each on channels 0 and 1 and noise alone
+    on 2-4 (their decodes fail). A first block of a whole window makes every
+    channel ready at once; the blocks after it are of blk_syms symbols,
+    fewer than IDLE_REARM (the failed channels wait a round) or more (they
+    are decoded every round and the delivered ones once their countdown is
+    due), so the step pools decode three of five rows (DeviceStreamPool pads
+    its bucket with channel 0's window, StreamPool with a zero row) while
+    FusedDevicePool decodes and masks every row. Round by round the three
+    deliver the same (channel, payload, delay) set, and DeviceStreamPool's
+    countdowns equal FusedDevicePool's."""
+    g = build_geometry(9)
+    rx = RxChain(g, device="cpu")
+    fused = serve.FusedDevicePool(g, 5, rx=rx)
+    steps = [serve.DeviceStreamPool(g, 5, rx=rx), serve.StreamPool(g, 5, rx=rx)]
+    sym = fused.sym_len
+    rng = np.random.default_rng(11)
+    payloads, frames = _frames(2, rng, cfg=9)
+    sigma = sim.sigma_for_esn0(12.0)
+    blocks = [(sigma * rng.standard_normal((5, n))).astype(np.float32)
+              for n in [fused.buf_len] + [blk_syms * sym] * 3]
+    for c in range(2):
+        lead = (1 + c) * sym + 97 * c
+        blocks[0][c, lead: lead + frames.shape[1]] += frames[c]
+    got, rows = [], []
+    for block in blocks:
+        got.append(_delivered(fused.unpack(fused.round(block))))
+        for pool in steps:
+            pool.feed_block(block)
+            assert _delivered(pool.step()) == got[-1]
+        np.testing.assert_array_equal(steps[0]._ftr, fused.ftr.numpy())
+        rows.append(steps[0].rows_dispatched)
+    assert {(c, p) for c, p, _ in got[0]} == {(c, bytes(payloads[c]))
+                                             for c in range(2)}
+    assert got[1:] == [set()] * 3
+    assert rows[:2] == [5, 5 + 3 * (blk_syms >= serve.IDLE_REARM)]
+    assert steps[0].rows_dispatched == steps[1].rows_dispatched
