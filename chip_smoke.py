@@ -31,7 +31,8 @@ build/mercury_tpu_torch/), then:
      same sweep, and over at most three sweeps iters within one and the
      posterior within the limit and share of roofline.LDPC_POST_BARS;
      one decode under torch.profiler shows the kernel and no cumprod,
-     atanh or index_add;
+     atanh or index_add; every LDPC line (here and each path shape of
+     4) names the launch geometry the plan took (ldpc_layout);
   2. drives the port's receive paths, TxChain.transmit -> awgn_passband ->
      RxChain.receive, with batch 256: CONFIG_3 (BPSK 4/16, noncoherent deep
      sync), CONFIG_9 (QPSK 8/16) and CONFIG_0 (BPSK 1/16, coherent deep
@@ -250,8 +251,16 @@ def shape_key(name: str, a: dict) -> tuple:
         plan = a["plan"]
         return (a["llr"].shape[0], f"rate {plan.rate_num}",
                 f"{plan.n_layers} layers", a["algo"],
-                "soft" if a["soft"] else "hard")
+                "soft" if a["soft"] else "hard", ldpc_layout(plan))
     return (*a["seg"].shape, *a["bank"].shape, a["window"])
+
+
+def ldpc_layout(plan) -> str:
+    """The launch geometry ldpc_layered takes for a plan (a block a row)."""
+    geo = plan.geometry
+    return (f"{geo.row_threads} threads a row, {geo.checks_lane} checks x "
+            f"{geo.slots_lane} edges a lane, {geo.passes} pass(es), "
+            f"{geo.shared_bytes} B shared")
 
 
 def _copy(v):
@@ -869,7 +878,8 @@ def check_ldpc_layered(dev: torch.device) -> dict:
                       "iters": want[1], **bd}
                 cases[name] = st
                 print(f"ldpc_layered {name} [{llr.shape[0]},1600], "
-                      f"{dec.n_layers} layers: {text}; {st['ok']}/"
+                      f"{dec.n_layers} layers ({ldpc_layout(dec.plan)}"
+                      f"): {text}; {st['ok']}/"
                       f"{llr.shape[0]} rows converged, {bd['sweeps']:.2f} "
                       f"sweeps a row; wrapper {st['ms']:.4f} ms, kernel "
                       f"alone {st['kernel_ms']:.4f} ms, plain {p_ms:.2f} "

@@ -462,8 +462,9 @@ def pilot_cand_score(bb_dec: torch.Tensor, idx0: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _BIG = 3.0e38
-# edges one lane holds of a check (csrc/ldpc_layered.cu's LDPC_KMAX)
-_LDPC_KMAX = 4
+# edges one lane holds of a check at most (csrc/ldpc_layered.cu's kernels
+# take 1 and 2)
+_LDPC_KMAX = 2
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -506,6 +507,55 @@ def check_node_update(q: torch.Tensor, mask: torch.Tensor, algo: str = "spa",
     return torch.where(mask, 2.0 * torch.atanh(prod_excl), 0.0)
 
 
+# at most ldpc_layered's threads a block, and a block's shared memory on
+# Hopper
+_LDPC_THREADS, _BLOCK_SMEM = 512, 227 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class LdpcGeometry:
+    """How ldpc_layered lays a plan on the card, a block a row:
+    `row_threads` threads a block, each lane holding `slots_lane` edges of
+    a check and `checks_lane` checks of a layer, a layer's checks in
+    `passes` passes; `shared_bytes` of shared memory a block."""
+    row_threads: int
+    checks_lane: int
+    slots_lane: int
+    passes: int
+    shared_bytes: int
+
+
+def ldpc_shared_bytes(n: int, n_edges: int, layer_scratch: int,
+                      n_layers: int, layer_slots: int) -> int:
+    """Shared memory of a block (csrc/ldpc_layered.cu's ldpc_smem): the
+    row's posterior, messages and deltas (float32), the check words and
+    two syndrome flags (int32) and the edges' variables (16 bits)."""
+    return (4 * (n + n_edges + layer_scratch + n_layers * layer_slots + 2)
+            + 2 * n_edges)
+
+
+def ldpc_geometry(n: int, n_edges: int, n_layers: int, max_layer_checks: int,
+                  max_degree: int, group: int,
+                  layer_scratch: int) -> LdpcGeometry:
+    """The launch geometry of a plan: the fewest passes over a layer's
+    checks that _LDPC_THREADS threads allow, one check a lane where that
+    takes no more passes than two, in the fewest whole warps (so the
+    most rows an SM). On the card (PERF.md §6) a layer in one pass beat
+    twice the rows an SM in two."""
+    smem = ldpc_shared_bytes(n, n_edges, layer_scratch, n_layers,
+                             max_layer_checks)
+    if smem > _BLOCK_SMEM:
+        raise ValueError(f"a row of {n} variables and {n_edges} edges does "
+                         f"not fit a block's shared memory")
+    groups = _LDPC_THREADS // group
+    passes = -(-max_layer_checks // (2 * groups))
+    checks = 1 if -(-max_layer_checks // groups) == passes else 2
+    per_pass = -(-max_layer_checks // passes)       # checks a pass
+    need = -(-per_pass // checks)                   # groups a pass
+    return LdpcGeometry(-(-need * group // 32) * 32, checks,
+                        -(-max_degree // group), passes, smem)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class LdpcPlan:
     """A layered decoding schedule in CSR form (fec.ldpc.pack_plan builds
@@ -515,13 +565,21 @@ class LdpcPlan:
     on variable edge_var[e]; layer l touches the variables var_id[j] for j
     in [var_ptr[l], var_ptr[l+1]), variable j on the edges var_edge[k] for
     k in [var_edge_ptr[j], var_edge_ptr[j+1]), ascending. disjoint: no two
-    checks of a layer share a variable. The launch geometry: `group` lanes a check (a
-    power of two, at most 32, each lane holding at most 4 edges),
-    `threads` a block, and `layer_scratch` floats of shared memory for a
-    grouped layer's deltas (0 when disjoint)."""
+    checks of a layer share a variable. The kernel's lane-order tables:
+    lane_check [n_layers * max_layer_checks] int32, the i-th check of
+    layer l in word l * max_layer_checks + i as its first edge | its
+    degree << 16 (0 past the layer's checks), and lane_var [n_edges]
+    int16, edge_var in 16 bits; lane lg of a check of degree d holds its
+    positions lg * kc + k, k < kc = ceil(d / group). `group` lanes a check
+    (a power of two, at most 32, each lane holding at most 2 edges),
+    `layer_scratch` floats of shared memory for a grouped layer's deltas
+    (0 when disjoint), and the launch `geometry` (LdpcGeometry)."""
     TABLES: ClassVar[tuple] = ("layer_ptr", "check_ptr", "edge_var",
                                "var_ptr", "var_id", "var_edge_ptr",
-                               "var_edge")
+                               "var_edge", "lane_check", "lane_var")
+    # what the kernel reads, in its entry point's order
+    KERNEL_TABLES: ClassVar[tuple] = ("lane_check", "lane_var", "var_ptr",
+                                      "var_id", "var_edge_ptr", "var_edge")
     rate_num: int
     n: int
     disjoint: bool
@@ -531,8 +589,8 @@ class LdpcPlan:
     max_layer_checks: int
     max_degree: int
     group: int
-    threads: int
     layer_scratch: int
+    geometry: LdpcGeometry
     layer_ptr: torch.Tensor
     check_ptr: torch.Tensor
     edge_var: torch.Tensor
@@ -540,25 +598,39 @@ class LdpcPlan:
     var_id: torch.Tensor
     var_edge_ptr: torch.Tensor
     var_edge: torch.Tensor
+    lane_check: torch.Tensor
+    lane_var: torch.Tensor
 
     @classmethod
     def from_arrays(cls, rate_num: int, n: int, disjoint: bool,
                     **tables) -> "LdpcPlan":
         arr = {k: np.asarray(v, dtype=np.int32) for k, v in tables.items()}
         lp, cp = arr["layer_ptr"], arr["check_ptr"]
+        n_layers, n_edges = len(lp) - 1, int(cp[-1])
         max_layer_checks = int(np.diff(lp).max())
-        max_degree = int(np.diff(cp).max())
+        deg = np.diff(cp)
+        max_degree = int(deg.max())
         group = min(32, 1 << (max_degree - 1).bit_length())
         if -(-max_degree // group) > _LDPC_KMAX:
             raise ValueError(f"check degree {max_degree} above "
                              f"{32 * _LDPC_KMAX}")
-        threads = min(512, max(256, -(-group * max_layer_checks // 32) * 32))
-        layer_edges = np.diff(cp[lp])
+        if n > 1 << 15 or n_edges >= 1 << 16:
+            raise ValueError(f"{n} variables or {n_edges} edges do not fit "
+                             f"the kernel's 16-bit tables")
+        layer_scratch = 0 if disjoint else int(np.diff(cp[lp]).max())
+        layer = np.repeat(np.arange(n_layers), np.diff(lp))
+        lane_check = np.zeros((n_layers, max_layer_checks), np.int32)
+        lane_check[layer, np.arange(len(deg)) - lp[layer]] = \
+            cp[:-1] | deg << 16
+        arr["lane_check"] = lane_check.reshape(-1)
+        arr["lane_var"] = arr["edge_var"].astype(np.int16)
+        geometry = ldpc_geometry(n, n_edges, n_layers, max_layer_checks,
+                                 max_degree, group, layer_scratch)
         return cls(rate_num=rate_num, n=n, disjoint=bool(disjoint),
-                   n_layers=len(lp) - 1, n_checks=len(cp) - 1,
-                   n_edges=int(cp[-1]), max_layer_checks=max_layer_checks,
-                   max_degree=max_degree, group=group, threads=threads,
-                   layer_scratch=0 if disjoint else int(layer_edges.max()),
+                   n_layers=n_layers, n_checks=len(deg), n_edges=n_edges,
+                   max_layer_checks=max_layer_checks, max_degree=max_degree,
+                   group=group, layer_scratch=layer_scratch,
+                   geometry=geometry,
                    **{k: torch.as_tensor(v) for k, v in arr.items()})
 
     def with_tables(self, tables: dict) -> "LdpcPlan":
@@ -657,6 +729,22 @@ def layered_decode_ref(llr: torch.Tensor, plan: LdpcPlan, max_iter: int,
     return bits, iters, done
 
 
+def ldpc_launch_args(llr: torch.Tensor, plan: LdpcPlan, outs: tuple,
+                     max_iter: int, algo: str, alpha: float,
+                     beta: float) -> tuple:
+    """The C entry point's arguments but the stream: llr [B, N] float32
+    and the plan's tables on one card, outs (bits, iters, ok, posterior or
+    None) allocated."""
+    geo = plan.geometry
+    return (llr.data_ptr(),
+            *[getattr(plan, t).data_ptr() for t in LdpcPlan.KERNEL_TABLES],
+            *[None if t is None else t.data_ptr() for t in outs],
+            llr.shape[0], plan.n, plan.n_layers, plan.n_edges,
+            plan.max_layer_checks, plan.layer_scratch, plan.group,
+            geo.slots_lane, geo.checks_lane, geo.row_threads, int(max_iter),
+            int(algo == "minsum"), float(alpha), float(beta))
+
+
 def ldpc_layered(llr: torch.Tensor, plan: LdpcPlan, max_iter: int,
                  algo: str = "spa", alpha: float = 1.0, beta: float = 0.0,
                  soft: bool = False):
@@ -666,8 +754,9 @@ def ldpc_layered(llr: torch.Tensor, plan: LdpcPlan, max_iter: int,
     posterior [B, N] float32 with soft (the contract of
     layered_decode_ref, the plain version).
 
-    CUDA: one launch, a block a row, the posterior and the check messages
-    in shared memory; every sweep, the convergence test and the outputs in
+    CUDA: one launch, a block a row of plan.geometry's threads, the row's
+    posterior and check messages and the plan's lane-order tables in
+    shared memory; every sweep, the convergence test and the outputs in
     the kernel, on the operands' current stream, with no host read until
     the decode ends. The plan's tables must lie on llr's card."""
     if llr.device.type == "cpu":
@@ -678,11 +767,13 @@ def ldpc_layered(llr: torch.Tensor, plan: LdpcPlan, max_iter: int,
     _require(llr.dim() == 2 and llr.shape[1] == plan.n,
              f"ldpc_layered: llr {tuple(llr.shape)} is not [B, {plan.n}]")
     _require(max_iter >= 0, "ldpc_layered: max_iter must be >= 0")
-    tables = [getattr(plan, name) for name in LdpcPlan.TABLES]
-    _require(all(t.device == llr.device and t.dtype == torch.int32
-                 and t.is_contiguous() for t in tables),
-             f"ldpc_layered: the plan's tables must be contiguous int32 on "
-             f"{llr.device}")
+    for name in LdpcPlan.KERNEL_TABLES:
+        t = getattr(plan, name)
+        _require(t.device == llr.device and t.is_contiguous() and t.dtype ==
+                 (torch.int16 if name == "lane_var" else torch.int32),
+                 f"ldpc_layered: the plan's {name} must be contiguous "
+                 f"{'int16' if name == 'lane_var' else 'int32'} on "
+                 f"{llr.device}")
     llr = llr.to(torch.float32).contiguous()
     b, n = llr.shape
     dev = llr.device
@@ -693,10 +784,6 @@ def ldpc_layered(llr: torch.Tensor, plan: LdpcPlan, max_iter: int,
             else None)
     if b > 0:
         _launch("ldpc_layered", llr, native.load_library().ldpc_launch,
-                llr.data_ptr(), *[t.data_ptr() for t in tables],
-                bits.data_ptr(), iters.data_ptr(), ok.data_ptr(),
-                None if post is None else post.data_ptr(), b, n,
-                plan.n_layers, plan.n_checks, plan.n_edges,
-                plan.layer_scratch, plan.group, plan.threads, int(max_iter),
-                int(algo == "minsum"), float(alpha), float(beta))
+                *ldpc_launch_args(llr, plan, (bits, iters, ok, post),
+                                  max_iter, algo, alpha, beta))
     return (bits, iters, ok, post) if soft else (bits, iters, ok)

@@ -50,12 +50,12 @@ _SIGNATURES = {
     # nsym, s, stream
     "pcs_launch": (_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I,
                    _I, _I, _I, _P),
-    # llr, layer_ptr, check_ptr, edge_var, var_ptr, var_id, var_edge_ptr,
-    # var_edge, bits, iters, ok, post (or NULL), batch, n, n_layers,
-    # n_checks, n_edges, layer_scratch, group, threads, max_iter, minsum,
-    # alpha, beta, stream
-    "ldpc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                    _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+    # llr, lane_check, lane_var, var_ptr, var_id, var_edge_ptr, var_edge,
+    # bits, iters, ok, post (or NULL), batch, n, n_layers, n_edges,
+    # layer_slots, layer_scratch, group, slots_lane, checks_lane,
+    # row_threads, max_iter, minsum, alpha, beta, stream
+    "ldpc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                     ctypes.c_float, _P),
 }
 

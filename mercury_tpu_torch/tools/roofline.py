@@ -288,14 +288,12 @@ def ldpc_raw(llr, plan, max_iter: int, algo: str = "spa", alpha: float = 1.0,
             torch.empty((b,), dtype=torch.bool, device=dev),
             torch.empty((b, n), dtype=torch.float32, device=dev)
             if soft else None)
-    operands = (llr.float().contiguous(),
-                *[getattr(plan, t) for t in kernels.LdpcPlan.TABLES])
-    return lambda: lib.ldpc_launch(
-        *[t.data_ptr() for t in operands],
-        *[None if t is None else t.data_ptr() for t in outs], b, n,
-        plan.n_layers, plan.n_checks, plan.n_edges, plan.layer_scratch,
-        plan.group, plan.threads, max_iter, int(algo == "minsum"),
-        float(alpha), float(beta), kernels._stream(llr))
+    llr = llr.float().contiguous()
+    args = kernels.ldpc_launch_args(llr, plan, outs, max_iter, algo, alpha,
+                                    beta)
+    # outs as a default: the launch writes into them, so they live as long
+    # as it does
+    return lambda outs=outs: lib.ldpc_launch(*args, kernels._stream(llr))
 
 
 # The SPA bars of ldpc_layered against its plain version (ldpc_agree): a

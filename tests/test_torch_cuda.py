@@ -17,7 +17,9 @@ differ in the last ulp) ok equal on all but 1% of the rows (rounded
 down), bits equal where both converged and the posterior equal in sign
 where they converged at the same sweep; over at most LDPC_FEW_SWEEPS
 sweeps also iters within one and the posterior within LDPC_POST_BARS'
-limit and bit-equal on all but its share of the elements. The
+limit and bit-equal on all but its share of the elements. Its rows stop
+on their own, and roofline.ldpc_raw's launch writes only into the outputs
+it holds. The
 matched-filter kernels multiply in TF32 on the tensor cores; the plain
 versions are float32 FFTs. A CONFIG_16 receive on the card equals the
 CPU's in crc_ok, delay and decoded payloads, iters within one sweep. The
@@ -796,6 +798,73 @@ def test_ldpc_layered_kernel_edges(cuda_device):
     bits, iters, ok = dec(llr[:0])
     assert bits.shape == (0, 1600)
     assert kernels.LAUNCHES["ldpc_layered"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["minsum", "spa"])
+@pytest.mark.parametrize("rate", [1, 8, 14])
+def test_ldpc_layered_kernel_rows_stop_on_their_own(cuda_device, rate, algo):
+    """2049 rows (more than a wave: the rows an SM that the plans' shared
+    memory allows times the SMs is at most 792 on an H100) and their first
+    3 alone: a clean row, a row
+    of noise that runs to the cap and a row that converges after some
+    sweeps, side by side. Each row keeps its own iters and ok (0, max_iter
+    + 1, between); min-sum equals the plain version in every output, SPA
+    as ldpc_agree holds it; the 3-row batch gives the same bits, iters, ok
+    and posterior as those rows of the large one; one launch a decode."""
+    from mercury_tpu_torch.fec import ldpc
+    from mercury_tpu_torch.tools.roofline import ldpc_agree, ldpc_mixed_llr
+
+    cw, mixed = ldpc_mixed_llr(rate, 2047, seed=20 + rate)
+    g = torch.Generator().manual_seed(rate)
+    noise = 0.3 * torch.randn((1, mixed.shape[1]), generator=g)
+    clean = 4.0 * (1 - 2 * cw[:1]).float()
+    llr = torch.cat([clean, noise, mixed]).to(cuda_device)
+    dec = ldpc.LayeredDecoder(rate, algo=algo).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    rows_sm = 228 * 1024 // (dec.plan.geometry.shared_bytes + 1024)
+    assert rows_sm * sms < llr.shape[0]
+    outs = []
+    for x in (llr, llr[:3]):
+        before = kernels.LAUNCHES["ldpc_layered"]
+        outs.append(dec(x, soft=True))
+        assert kernels.LAUNCHES["ldpc_layered"] == before + 1
+    want = kernels.layered_decode_ref(llr, dec.plan, 50, algo, dec.alpha,
+                                      dec.beta, soft=True)
+    torch.cuda.synchronize()
+    ldpc_agree(outs[0], want, algo, f"rate {rate} {algo} 2049 rows", 50)
+    for a, b in zip(*outs):
+        assert torch.equal(a[:3], b)
+    bits, iters, ok, _post = outs[0]
+    assert iters[0] == 0 and iters[1] == 51 and 0 < iters[2] <= 50
+    assert ok[0] and not ok[1] and ok[2]
+    assert torch.equal(bits[0], cw[0].to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_ldpc_raw_launch_keeps_its_outputs(cuda_device):
+    """roofline.ldpc_raw's launch writes into outputs that live as long as
+    it does: tensors of the outputs' sizes allocated after it was built
+    (where the caching allocator would hand back freed outputs) are left
+    as they were by its launches."""
+    from mercury_tpu_torch.fec import ldpc
+    from mercury_tpu_torch.tools.roofline import ldpc_mixed_llr, ldpc_raw
+
+    _cw, llr = ldpc_mixed_llr(8, 64, seed=24)
+    llr = llr.to(cuda_device)
+    dec = ldpc.LayeredDecoder(8).to(cuda_device)
+    launch = ldpc_raw(llr, dec.plan, 50, soft=True)
+    b, n = llr.shape
+    later = (torch.full((b, n), 7, dtype=torch.int64, device=cuda_device),
+             torch.full((b,), -1, dtype=torch.int64, device=cuda_device),
+             torch.zeros((b,), dtype=torch.bool, device=cuda_device),
+             torch.full((b, n), float("nan"), device=cuda_device))
+    for _ in range(3):
+        assert launch() == 0
+    torch.cuda.synchronize()
+    assert dec(llr)[2].any()          # some rows converge: ok is written
+    assert (later[0] == 7).all() and (later[1] == -1).all()
+    assert not later[2].any() and later[3].isnan().all()
 
 
 @pytest.mark.cuda

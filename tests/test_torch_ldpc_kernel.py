@@ -73,8 +73,9 @@ def test_pack_plan_is_layer_plan_without_padding(rate, kind):
     assert plan.n_edges == int((code.c_idx >= 0).sum())
     assert (plan.n_layers, plan.max_layer_checks, plan.max_degree) == \
         padded.shape
-    assert plan.max_degree <= 4 * plan.group <= 4 * 32
-    assert plan.threads % 32 == 0 and plan.threads <= 512
+    assert plan.max_degree <= 2 * plan.group <= 2 * 32
+    assert plan.geometry.row_threads % 32 == 0
+    assert plan.geometry.row_threads <= 512
 
 
 @pytest.mark.parametrize("kind", ["default", "one", "below"])
@@ -108,13 +109,124 @@ def test_pack_plan_variable_lists(rate, kind):
 def test_default_plans_are_disjoint(rate):
     """RxChain's layering (n_layers None) is variable-disjoint at every
     rate, and below the bound it is not: the kernel's direct path is the
-    receive's, its grouped path a direct call's. A default plan's block
+    receive's, its grouped path a direct call's. A default plan's row
     (the posterior and the check messages, float32, in shared memory)
-    needs no shared-memory opt-in."""
+    fits the 48 KB a block gets without an opt-in."""
     plan = ldpc.pack_plan(rate)
     assert plan.disjoint
     assert not ldpc.pack_plan(rate, _below_bound(rate)).disjoint
     assert 4 * (plan.n + plan.n_edges + plan.layer_scratch) <= 48 * 1024
+
+
+def _lane_edges(plan):
+    """(layer, slot, lane, k, edge) of every edge a thread of the kernel
+    reaches, walking csrc/ldpc_layered.cu's loops: thread j of a row is
+    lane j % group of group j // group; it takes the slots base + c * ng +
+    group (ng groups a row, c < checks_lane) of each layer, and in the
+    check of a slot (first edge e0, degree d, kc = ceil(d / group)) the
+    positions lane * kc + k, k < slots_lane."""
+    geo, g = plan.geometry, plan.group
+    words = plan.lane_check.numpy().astype(np.int64).reshape(
+        plan.n_layers, plan.max_layer_checks)
+    ng = geo.row_threads // g
+    j = np.arange(geo.row_threads)
+    lane, grp = j % g, j // g
+    found = []
+    for base in range(0, plan.max_layer_checks, ng * geo.checks_lane):
+        for c in range(geo.checks_lane):
+            slot = base + c * ng + grp
+            inside = slot < plan.max_layer_checks
+            w = np.where(inside[None, :],
+                         words[:, np.minimum(slot, plan.max_layer_checks
+                                             - 1)], 0)
+            e0, deg = w & 0xFFFF, w >> 16
+            kc = -(-deg // g)
+            for k in range(geo.slots_lane):
+                pos = lane[None, :] * kc + k
+                has = (k < kc) & (pos < deg)
+                lay, thr = np.nonzero(has)
+                found.append(np.stack([lay, slot[thr], lane[thr],
+                                       np.full(len(lay), k),
+                                       (e0 + pos)[lay, thr]], axis=1))
+    return np.concatenate(found)
+
+
+@pytest.mark.parametrize("n_layers", [None, 1, 4])
+@pytest.mark.parametrize("rate", RATES)
+def test_lane_tables_place_every_edge_once(rate, n_layers):
+    """The kernel's lane-order tables: walking the threads as the kernel
+    does reaches every edge of check_ptr/edge_var exactly once, in the
+    layer and check slot of its check and at the lane and slot lane * kc
+    + k of its position, with the variable edge_var gives it; the first
+    edges, degrees and variables fit in 16 bits."""
+    plan = ldpc.pack_plan(rate, n_layers)
+    lp, cp, ev = (plan.layer_ptr.numpy(), plan.check_ptr.numpy(),
+                  plan.edge_var.numpy())
+    got = _lane_edges(plan)
+    lay, slot, lane, k, edge = got.T
+    assert np.array_equal(np.sort(edge), np.arange(plan.n_edges))
+    check = lp[lay] + slot
+    assert (slot < np.diff(lp)[lay]).all()
+    assert ((cp[check] <= edge) & (edge < cp[check + 1])).all()
+    kc = -(-np.diff(cp)[check] // plan.group)
+    np.testing.assert_array_equal(edge - cp[check], lane * kc + k)
+    lane_var = plan.lane_var.numpy()
+    assert lane_var.dtype == np.int16 and lane_var.min() >= 0
+    np.testing.assert_array_equal(lane_var, ev)
+    words = plan.lane_check.numpy().reshape(plan.n_layers, -1)
+    for l in range(plan.n_layers):
+        n_l = lp[l + 1] - lp[l]
+        np.testing.assert_array_equal(words[l, :n_l] & 0xFFFF,
+                                      cp[lp[l]: lp[l + 1]])
+        np.testing.assert_array_equal(words[l, :n_l] >> 16,
+                                      np.diff(cp)[lp[l]: lp[l + 1]])
+        assert (words[l, n_l:] == 0).all()
+    assert cp.max() < 1 << 16 and ev.max() < 1 << 15
+    assert (-(-np.diff(cp) // plan.group)).max() <= plan.geometry.slots_lane
+
+
+# rows an SM of a fixed-lane block (a row a block of min(512, max(256,
+# the layer's lanes)) threads, four edge slots a lane, 40 registers), as
+# the card's occupancy calculator gave them on an NVIDIA H100 80GB HBM3;
+# a geometry's threads and shared memory must allow as many
+ONE_ROW_ROWS_SM = {1: 2, 2: 2, 3: 2, 4: 2, 5: 2, 6: 2, 8: 2, 14: 4}
+
+
+@pytest.mark.parametrize("n_layers", [None, 1, 4])
+@pytest.mark.parametrize("rate", RATES)
+def test_geometry_fits_the_card(rate, n_layers):
+    """A plan's geometry (a block a row): its shared memory within 227 KB
+    and as the kernel lays it out, its threads within the kernel's 512 and
+    whole warps, a lane's edge slots within the kernel's two. A layer
+    takes the fewest passes 512 threads allow, one check a lane where that
+    takes no more passes, and a warp fewer would take more. An SM's 2048
+    threads and 228 KB of shared memory (1 KB of it a block) allow at
+    least two rows, and for the receive's layering at least as many as a
+    fixed-lane block held, with a layer in one pass at every rate but 4/16
+    and 5/16 (where one pass takes more than 512 threads)."""
+    plan = ldpc.pack_plan(rate, n_layers)
+    geo, g, m = plan.geometry, plan.group, plan.max_layer_checks
+    assert geo.shared_bytes <= 227 * 1024 and geo.row_threads <= 512
+    assert geo.row_threads % 32 == 0 and geo.row_threads % g == 0
+    assert geo.checks_lane in (1, 2)
+    assert geo.slots_lane == -(-plan.max_degree // g) <= 2
+    assert geo.shared_bytes == kernels.ldpc_shared_bytes(
+        plan.n, plan.n_edges, plan.layer_scratch, plan.n_layers, m)
+
+    def passes(threads, checks):
+        return -(-m // (threads // g * checks))
+
+    assert geo.passes == passes(geo.row_threads, geo.checks_lane) \
+        == passes(512, 2)
+    assert (geo.checks_lane == 1) == (passes(512, 1) == geo.passes)
+    if geo.row_threads > 32:
+        assert passes(geo.row_threads - 32, geo.checks_lane) > geo.passes
+    rows_sm = min(2048 // geo.row_threads,
+                  228 * 1024 // (geo.shared_bytes + 1024))
+    assert rows_sm >= 2
+    if n_layers is None:
+        assert rows_sm >= ONE_ROW_ROWS_SM[rate]
+        assert (geo.passes == 1) == (rate not in (4, 5))
 
 
 def _noisy(rate, sigma, seed, rows=8):

@@ -44,10 +44,10 @@ BUILDS = {
                             "before * (pre[k] * (suf[k] * after))")], [],
                           True),
     "fast math": ([], ["--use_fast_math"], False),
-    "delta not rounded": ([("ldpc_bf16(r_new[k] - r_old[k])",
-                            "(r_new[k] - r_old[k])")], [], False),
-    "read not rounded": ([("ldpc_bf16(L[v[k]]) - r_old[k]",
-                           "L[v[k]] - r_old[k]")], [], False),
+    "delta not rounded": ([("ldpc_bf16(r_new[c][k] - r_old[c][k])",
+                            "(r_new[c][k] - r_old[c][k])")], [], False),
+    "read not rounded": ([("ldpc_bf16(L[v[c][k]]) - r_old[c][k]",
+                           "L[v[c][k]] - r_old[c][k]")], [], False),
 }
 
 
