@@ -63,8 +63,10 @@ build/mercury_tpu_torch/), then:
      on noise of known power; StreamReceiver on tests/test_stream.py's
      three-frame stream; rx_diagnostics's bars; two link sessions, two
      ArqTcpServers over localhost and the three serving pools at 256
-     channels of CONFIG_9. Then the sharded receive on virtual meshes of
-     the one card (scale.shard; every shard a chain and a stream of its
+     channels of CONFIG_9; FusedDevicePool at CONFIG_3 at the benchmark's
+     c3_pool_scan size (POOL_SCAN_CHANNELS, Es/N0 0.75 dB), whose scan and
+     refinement launch shapes 4 holds. Then the sharded receive on virtual
+     meshes of the one card (scale.shard; every shard a chain and a stream of its
      own, the shards driven in turn): channel-parallel CONFIG_9 at 12 dB on 1, 2 and 4 shards
      (the unsharded receive's bytes), CONFIG_0 as 4 shards x 64 rows, and
      spmd_overhead_curve at a total batch of 256; time_sharded_receive
@@ -1915,6 +1917,61 @@ def plain_claims(rx, stream, n_dev: int, halo: int, sym: int) -> tuple:
     return torch.stack(claims), torch.stack(delays), torch.stack(pays)
 
 
+# the benchmark's c3_pool_scan cell: its channels, chunk and lead symbols
+# and Es/N0 (benchmark/workloads/c3_pool_scan.json)
+POOL_SCAN_CHANNELS = 1024
+POOL_SCAN_CHUNK, POOL_SCAN_LEAD, POOL_SCAN_ESN0 = 82, 2, 0.75
+
+
+def drive_pool_scan(dev: torch.device, n_ch: int = POOL_SCAN_CHANNELS,
+                    rounds: int = 4) -> dict:
+    """FusedDevicePool over n_ch channels of CONFIG_3 at the c3_pool_scan
+    cell's traffic: a frame a channel a round at POOL_SCAN_LEAD symbols
+    into a POOL_SCAN_CHUNK-symbol chunk, white noise at POOL_SCAN_ESN0 dB.
+    From the second round every channel is due a frame; 9/10 of them must
+    arrive, each with the bytes its channel sent. Its launch shapes (the
+    noncoherent scan [C,14824]x[9,4,136], the refinement
+    [3C,1088]x[3,4,136], the FIRs and the rate-4/16 decode at C rows) are
+    held against the plain versions by hold_path_shapes."""
+    g = build_geometry(3)
+    pool = serve.FusedDevicePool(g, n_ch, rx=RxChain(g, device=dev))
+    chunk, lead = POOL_SCAN_CHUNK * pool.sym_len, POOL_SCAN_LEAD * pool.sym_len
+    tx = TxChain(g, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2503)
+    sigma = sim.sigma_for_esn0(POOL_SCAN_ESN0)
+    kernels.reset_launch_counts()
+    due = delivered = 0
+    ms = []
+    for r in range(rounds):
+        pay = torch.randint(0, 256, (n_ch, g.frame_bytes), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        block = sigma * torch.randn((n_ch, chunk), generator=gen, device=dev)
+        block[:, lead: lead + g.total_frame_size] += tx.transmit(pay)
+        block = block.cpu().numpy()
+        want = pay.cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pool.unpack(pool.round(block))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if r == 0:
+            assert out == [], "the first round arms the pool"
+            continue
+        due += n_ch
+        delivered += len(out)
+        for c, res in out:
+            assert bytes(res.payload[0]) == bytes(want[c]), (
+                f"CONFIG_3 pool: channel {c} delivered other bytes")
+    launches = dict(kernels.LAUNCHES)
+    assert delivered >= due * 9 // 10, (
+        f"CONFIG_3 pool: {delivered}/{due} frames delivered")
+    print(f"FusedDevicePool, {n_ch} channels of CONFIG_3 at "
+          f"{POOL_SCAN_ESN0} dB (c3_pool_scan's traffic): {delivered}/{due} "
+          f"due frames delivered with the bytes sent over {rounds - 1} "
+          f"rounds; ms a round {[round(t, 2) for t in ms]}; launches "
+          f"{launches}")
+    return {"launches": launches}
+
+
 def drive_channel_parallel(dev: torch.device) -> dict:
     """channel_parallel_receive on virtual meshes of 1, 2 and 4 shards of
     the one card: CONFIG_9 at 12 dB, 256 channels (every row decodes its
@@ -2809,6 +2866,7 @@ def main() -> int:
         ("mix_fir_decimate", "ldpc_layered"))
     run("tcp", drive_tcp, dev)
     run("pools", drive_pools, dev)
+    run("CONFIG_3 pool", drive_pool_scan, dev)
     print(f"link, tcp and pool phases: {time.perf_counter() - t_new:.1f} s")
     # multi-device receive on virtual meshes of the one card, the deep
     # profiles and the legacy metrics

@@ -1074,7 +1074,8 @@ class RxChain(nn.Module):
         arbitration; with "c2f" its best rows join the candidates instead)
         -> (delay [B], coarse CFO [B]); hypotheses at or past sync_limit
         (interp samples) are out. stage "arb": the (delays, scores, CFOs)
-        stacks [rows, B] before the pick."""
+        stacks [rows, B] before the pick. Span rx.nc_scan around the scan,
+        n = the rows scanned."""
         g = self.geom
         b, n_ts = bb_ts.shape
         dev = bb_ts.device
@@ -1087,26 +1088,28 @@ class RxChain(nn.Module):
         max_start = (n_ts * ts_dec - seg_d_len * mf_d) // mf_d * mf_d
         c2f = self.deep_sync and self.deep_profile == "c2f"
         if self.deep_sync:
-            # whole-buffer known-preamble scan over a static CFO grid
-            grid_hz = (DEEP_FULL_GRID_HZ if self.deep_profile == "full"
-                       else DEEP_GRID_HZ)
-            span = 120.0 if self.cfo_range == "wide" else 30.0
-            n_h = int(round(span / grid_hz))
-            grid_f = np.arange(-n_h, n_h + 1) * grid_hz
-            bank_g, grid_t = self._refine_bank(tmpl_d, grid_f, mf_d)
-            win_g = (n_ts // mf_s - lp * s_d) // 2
-            seg_g = bb_ts[:, : (2 * win_g + lp * s_d) * mf_s: mf_s]
-            delay_g, score_g = sync.matched_filter_refine_bank(
-                seg_g, torch.zeros(b, dtype=torch.int64, device=dev), bank_g,
-                win_g)
-            if c2f:
-                # the scan's best rows (lax.top_k's order: ties keep the
-                # lower row) are refined with the Schmidl-Cox candidates
-                top = torch.sort(score_g, dim=-1, descending=True,
-                                 stable=True)[1][:, :C2F_TOPN]
-                d_top = torch.gather(delay_g, 1, top) * mf_d
-                cands = list(cands) + list(d_top.T)
-                cfo_c = list(cfo_c) + list(grid_t[top].T)
+            with obs.span("rx.nc_scan", b, device=self.device):
+                # whole-buffer known-preamble scan over a static CFO grid
+                grid_hz = (DEEP_FULL_GRID_HZ if self.deep_profile == "full"
+                           else DEEP_GRID_HZ)
+                span = 120.0 if self.cfo_range == "wide" else 30.0
+                n_h = int(round(span / grid_hz))
+                grid_f = np.arange(-n_h, n_h + 1) * grid_hz
+                bank_g, grid_t = self._refine_bank(tmpl_d, grid_f, mf_d)
+                win_g = (n_ts // mf_s - lp * s_d) // 2
+                seg_g = bb_ts[:, : (2 * win_g + lp * s_d) * mf_s: mf_s]
+                delay_g, score_g = sync.matched_filter_refine_bank(
+                    seg_g, torch.zeros(b, dtype=torch.int64, device=dev),
+                    bank_g, win_g)
+                if c2f:
+                    # the scan's best rows (lax.top_k's order: ties keep
+                    # the lower row) are refined with the Schmidl-Cox
+                    # candidates
+                    top = torch.sort(score_g, dim=-1, descending=True,
+                                     stable=True)[1][:, :C2F_TOPN]
+                    d_top = torch.gather(delay_g, 1, top) * mf_d
+                    cands = list(cands) + list(d_top.T)
+                    cfo_c = list(cfo_c) + list(grid_t[top].T)
         alias = g.fs / ((g.nfft // 2) * g.interp)
         alias_offsets = ((0.0, alias, -alias) if self.cfo_range == "wide"
                          else (0.0,))

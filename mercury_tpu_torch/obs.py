@@ -10,6 +10,10 @@ Spans. The receive and the serving pool mark where their work happens with
     rx.deep_scan       inside it on CONFIG_0: the coherent scan, its pooled
                        top peaks, the pilot-lattice re-score and the pick;
                        n = the rows scanned (device extent too)
+    rx.nc_scan         inside it on CONFIG_1-4 (deep sync, not coherent):
+                       the noncoherent whole-buffer scan, its best lag for
+                       each CFO-grid row; n = the rows scanned (device
+                       extent too)
     rx.decode          its first decode and the rescue decode, recovery
                        included (device extent too)
     rx.rescue          CONFIG_0's runner-up decode of the failed rows and

@@ -25,7 +25,8 @@ versions are float32 FFTs. A CONFIG_16 receive on the card equals the
 CPU's in crc_ok, delay and decoded payloads, iters within one sweep. The
 device pools (4 channels of CONFIG_16) and a two-node link session decode
 every frame with their windows and chains on the card; a clean CONFIG_9
-FusedDevicePool round issues nothing that makes the host wait on the card
+FusedDevicePool round and a CONFIG_3 round (the noncoherent scan) issue
+nothing that makes the host wait on the card
 (torch.cuda.set_sync_debug_mode("error")), and a CONFIG_0 round with a
 blank channel makes one such call, the rescue's read of its rows, and no
 copy from pageable host memory. A 2-shard virtual
@@ -582,6 +583,41 @@ def test_fused_round_on_card_never_synchronizes(cuda_device):
     got = {c: bytes(res.payload[0]) for c, res in pool.unpack(packed)}
     assert got == {c: bytes(payloads[c]) for c in range(4)}
     assert pool.prefetched_rounds == 2
+
+
+@pytest.mark.cuda
+def test_config3_round_on_card_never_synchronizes(cuda_device):
+    """A CONFIG_3 FusedDevicePool round of 4 channels at 6 dB (the
+    noncoherent scan, its rows in the arbitration, a rate-4/16 decode),
+    its next block's upload included, makes no call that blocks the host
+    on the card, and delivers the bytes each channel sent. The rounds
+    before it arm the pool and fill the chain's caches."""
+    from mercury_tpu_torch.scale import serve
+
+    g = build_geometry(3)
+    pool = serve.FusedDevicePool(g, 4, rx=RxChain(g, device=cuda_device))
+    chunk, lead = 82 * pool.sym_len, 2 * pool.sym_len
+    tx = TxChain(g, device="cpu")
+    rng = np.random.default_rng(7)
+    sigma = sim.sigma_for_esn0(6.0)
+    payloads, blocks = [], []
+    for _ in range(4):
+        pay = rng.integers(0, 256, (4, g.frame_bytes)).astype(np.uint8)
+        frames = tx.transmit(torch.from_numpy(pay)).numpy()
+        block = (sigma * rng.standard_normal((4, chunk))).astype(np.float32)
+        block[:, lead: lead + frames.shape[1]] += frames
+        payloads.append(pay)
+        blocks.append(block)
+    for r in range(2):
+        pool.unpack(pool.round(blocks[r], blocks[r + 1]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = pool.round(blocks[2], blocks[3])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = {c: bytes(res.payload[0]) for c, res in pool.unpack(packed)}
+    assert got == {c: bytes(payloads[2][c]) for c in range(4)}
 
 
 @pytest.mark.cuda
