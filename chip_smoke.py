@@ -20,8 +20,10 @@ build/mercury_tpu_torch/), then:
      CONFIG_0/3's, 9's and 100's sizes; the stride-1 "same" form of
      to_baseband), and in the stride-1 "same" form over CONFIG_9's buffer
      with either taps (to_baseband, measure_signal_dbm); deep_mf_score
-     also at the refine shapes of CONFIG_11 (three preamble symbols), 13
-     (two) and 16 (one), and at refine_decode's full-rate shape;
+     and deep_mf_best (the best lag of each hypothesis: bit-equal to
+     deep_mf_score's surface, its first argmax and the score there) also
+     at the refine shapes of CONFIG_11 (three preamble symbols), 13 (two)
+     and 16 (one), and at refine_decode's full-rate shape;
      ldpc_layered (the layered LDPC decode, one launch a decode) at every
      code rate, SPA and min-sum, at batch 256 with mixed noise (rows that
      converge and rows that do not) and at batch 1, and SPA after one and
@@ -186,22 +188,38 @@ KERNELS = {
                       "mercury_tpu/dsp/pallas_kernels.py:298"),
     "deep_mf_max": ("mercury_tpu_torch/csrc/deep_mf_score.cu",
                     "mercury_tpu/dsp/pallas_kernels.py:404"),
+    "deep_mf_best": ("mercury_tpu_torch/csrc/deep_mf_score.cu",
+                     "mercury_tpu/modem/sync.py:197"),
     "pilot_cand_score": ("mercury_tpu_torch/csrc/pilot_cand_score.cu",
                          "mercury_tpu/dsp/pallas_kernels.py:573"),
     "ldpc_layered": ("mercury_tpu_torch/csrc/ldpc_layered.cu",
                      "mercury_tpu/fec/ldpc.py:386"),
 }
-# the kernels each receive path must launch
-PATH_KERNELS = {3: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
-                9: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
+# the function of `kernels` that launches a kernel, where it is not the
+# kernel's name (deep_mf_best chooses between its kernel and the surface)
+LAUNCHER = {"deep_mf_best": "deep_mf_best_fused"}
+# the noncoherent matched filter: deep_mf_best's kernel where the rows fill
+# the card (kernels._best_rows: the pool's scans, refines of 768 rows), else
+# deep_mf_score's surface and its argmax (a link's few rows, refine_decode)
+MF = ("deep_mf_best", "deep_mf_score")
+# the kernels each receive path must launch (of a tuple, any one)
+PATH_KERNELS = {3: ("mix_fir_decimate", MF, "ldpc_layered"),
+                9: ("mix_fir_decimate", MF, "ldpc_layered"),
                 0: ("mix_fir_decimate", "deep_mf_max", "pilot_cand_score",
                     "ldpc_layered"),
-                16: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
-                13: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
-                11: ("mix_fir_decimate", "deep_mf_score", "ldpc_layered"),
+                16: ("mix_fir_decimate", MF, "ldpc_layered"),
+                13: ("mix_fir_decimate", MF, "ldpc_layered"),
+                11: ("mix_fir_decimate", MF, "ldpc_layered"),
                 100: ("mix_fir_decimate", "ldpc_layered"),
                 101: ("mix_fir_decimate", "ldpc_layered"),
                 102: ("mix_fir_decimate", "ldpc_layered")}
+
+
+def path_ran(n: dict, cfg: int, least: int = 1) -> bool:
+    """Whether launch counts n hold every kernel PATH_KERNELS[cfg] names,
+    each (of a tuple, the alternatives together) at least `least` times."""
+    return all(sum(n[x] for x in ((k,) if isinstance(k, str) else k))
+               >= least for k in PATH_KERNELS[cfg])
 # the code rates of the layered LDPC decode (every rate a config uses)
 LDPC_RATES = (1, 2, 3, 4, 5, 6, 8, 14)
 # Es/N0 of the cfo_range="narrow" receives at +-30 Hz: at 12 dB the JAX
@@ -287,14 +305,15 @@ class ShapeLog:
     a lock guards the notes."""
 
     def __init__(self):
-        self.wrappers = {name: getattr(kernels, name) for name in KERNELS}
+        self.wrappers = {name: getattr(kernels, LAUNCHER.get(name, name))
+                         for name in KERNELS}
         self._lock = threading.Lock()
         self.held = set()
         self.path = None
         self.unheld = {}
         self.launches = {}
         for name, fn in self.wrappers.items():
-            setattr(kernels, name, self._noting(name, fn))
+            setattr(kernels, LAUNCHER.get(name, name), self._noting(name, fn))
 
     def _noting(self, name, fn):
         sig = inspect.signature(fn)
@@ -319,13 +338,45 @@ class ShapeLog:
                     k: _copy(v) for k, v in a.items()}}
 
 
+def best_agree(seg, bank, window: int, lag, got, want_lag, want,
+               label: str, surface_fn=None) -> tuple[float, str]:
+    """deep_mf_best's (lag, score) against deep_mf_score's surface on the
+    card (surface_fn: that wrapper, kernels' by default), its first argmax
+    over the lags and the score there: bit-equal
+    (the same TF32 products, summed over K and the parts in the same
+    order); against the plain version (want_lag, want): scores within rtol
+    and atol 1e-3, lags equal wherever the plain surface's top two differ
+    by more than 1e-3. -> (max abs err against the plain version, text)."""
+    surface = (surface_fn or kernels.deep_mf_score)(seg, bank, window)
+    s_lag = surface.argmax(-1)
+    s_best = torch.gather(surface, -1, s_lag[..., None])[..., 0]
+    assert torch.equal(lag, s_lag), (
+        f"{label}: lag differs from the surface's argmax on "
+        f"{int((lag != s_lag).sum())} of {lag.numel()}")
+    assert torch.equal(got, s_best), (
+        f"{label}: score not bit-equal to the surface's, max abs "
+        f"{(got - s_best).abs().max().item():.3e}")
+    del surface
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    top2 = kernels.deep_mf_score_ref(seg, bank, window).topk(2, dim=-1).values
+    clear = top2[..., 0] - top2[..., 1] > 1e-3
+    assert torch.equal(lag[clear], want_lag[clear]), (
+        f"{label}: lag differs from the plain version's at a clear peak")
+    return ((got - want).abs().max().item(),
+            f"bit-equal to the surface's argmax and score; within rtol/atol "
+            f"1e-3 of the plain version, lags equal on {int(clear.sum())}/"
+            f"{clear.numel()} clear (row, hypothesis)")
+
+
 def hold_path_shapes(log: ShapeLog) -> dict:
     """Every shape a path launched that phase 1 did not hold, on the
     operands of its first call there: the wrapper against the plain
     version at phase 1's tolerances (mix_fir_decimate within 1e-4 of
     max(1, the output's scale); the matched filters rtol and atol 1e-3,
     with the argmax equal wherever the plain version's top two differ by
-    more than 1e-3; pilot_cand_score rtol 1e-4, atol 1e-5), each timed
+    more than 1e-3, deep_mf_best also bit-equal to deep_mf_score's
+    surface, its argmax and the score there (best_agree); pilot_cand_score
+    rtol 1e-4, atol 1e-5), each timed
     through the wrapper, alone and plain (5 launches each) beside its
     bound; ldpc_layered as ldpc_agree holds it (min-sum bit-exact), its
     plain version timed once. -> {"name shape": figures}."""
@@ -371,6 +422,16 @@ def hold_path_shapes(log: ShapeLog) -> dict:
             bd = pcs_bound(a["bb_dec"], a["idx0"], a["fidx"], a["bank"])
             raw = pcs_raw(**a)
             text = "within rtol 1e-4, atol 1e-5"
+        elif name == "deep_mf_best":
+            seg, bank, window = a["seg"], a["bank"], a["window"]
+            (lag, got), (want_lag, want) = wrapper(**a), plain(**pa)
+            err, text = best_agree(seg, bank, window, lag, got, want_lag,
+                                   want, f"{name} {key}",
+                                   log.wrappers["deep_mf_score"])
+            outs = [torch.empty_like(got), torch.empty_like(lag)]
+            bd = mf_bound(seg.shape[0], seg.shape[1], bank.shape,
+                          2 * window + 1, 12, per_lag=False)
+            raw = mf_raw(name, seg, bank, window, outs)
         else:
             seg, bank, window = a["seg"], a["bank"], a["window"]
             score = kernels.deep_mf_score_ref(seg, bank, window)
@@ -637,7 +698,8 @@ def check_mix_fir_decimate(chains: dict, gen: torch.Generator,
 
 
 def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
-                        refine_only: dict, rx9: RxChain) -> dict:
+                        refine_only: dict, rx9: RxChain
+                        ) -> tuple[dict, dict]:
     """Whole-buffer scan [256,14824]x[9,4,136] w=7140 and per-candidate
     refine [768,1088]x[3,4,136] w=272 (CONFIG_3, and CONFIG_9's refine),
     the refine of each chain in refine_only (label -> chain: CONFIG_11
@@ -647,10 +709,13 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
     the kernel's 256-lag tile); and the link's sizes: a batch-1 receive's
     refine ([3,1088]x[3,4,136]) and refine_decode over a batch_size-5
     block's siblings ([5,4864]x[1,4,1088]); with planted peaks: argmax
-    equal on every planted row, scores within rtol 1e-3 (atol 1e-3)."""
+    equal on every planted row, scores within rtol 1e-3 (atol 1e-3). And
+    deep_mf_best on the same operands (best_agree; its planted lags equal
+    the plants). -> (deep_mf_score's figures, deep_mf_best's)."""
     dev = rx.device
     aliases = (0.0, 93.75, -93.75)
     out = {"max_abs_err": 0.0, "shapes": {}}
+    best = {"max_abs_err": 0.0, "shapes": {}, "library_ms": None}
     for label, chain, rows, freqs, window in (
             ("scan", rx, BATCH, np.arange(-4, 5) * 30.0, 7140),
             ("refine", rx, 3 * BATCH, aliases, 272),
@@ -708,8 +773,39 @@ def check_deep_mf_score(rx: RxChain, gen: torch.Generator,
               f"{mf_tflops(rows, bank.shape, 2 * window + 1, raw):.2f} "
               f"TFLOP/s effective (kernel alone); {bound_text(bd, raw)}; "
               f"library: none; {MF_FORM}")
+        del got, want
+        b_lag, b_got = kernels.deep_mf_best_fused(seg, bank, window)
+        want_lag, b_want = kernels.deep_mf_best_ref(seg, bank, window)
+        assert torch.equal(b_lag[r, hyp], lag), f"{label}: planted lags"
+        b_err, text = best_agree(seg, bank, window, b_lag, b_got, want_lag,
+                                 b_want, f"deep_mf_best {label}")
+        best["max_abs_err"] = max(best["max_abs_err"], b_err)
+        bk_ms = warm_ms(lambda: kernels.deep_mf_best(seg, bank, window), 5)
+        b_raw = warm_ms(checked(mf_raw(
+            "deep_mf_best", seg, bank, window,
+            [torch.empty_like(b_got), torch.empty_like(b_lag)]), label), 5)
+        bp_ms = warm_ms(lambda: kernels.deep_mf_best_ref(seg, bank, window),
+                        5)
+        b_bd = mf_bound(rows, seg_len, bank.shape, 2 * window + 1, 12,
+                        per_lag=False)
+        if label == "scan":
+            best.update(b_bd, ms=bk_ms, kernel_ms=b_raw, plain_ms=bp_ms)
+        # the rows from which the wrapper takes the kernel (0: never)
+        takes = kernels._best_rows(dev, *bank.shape, 2 * window + 1)
+        best["shapes"][label] = {"ms": bk_ms, "kernel_ms": b_raw,
+                                 "plain_ms": bp_ms,
+                                 "bound_ms": b_bd["bound_ms"],
+                                 "max_abs_err": b_err, "kernel_from": takes}
+        print(f"deep_mf_best {label} [{rows},{seg_len}]x{list(bank.shape)} "
+              f"w={window}: {text}, max abs err {b_err:.3e}; wrapper "
+              f"({'kernel' if 0 < takes <= rows else 'surface'}: the "
+              f"kernel from {takes} rows) "
+              f"{bk_ms:.4f} ms, kernel alone {b_raw:.4f} ms, plain "
+              f"{bp_ms:.4f} ms; "
+              f"{mf_tflops(rows, bank.shape, 2 * window + 1, b_raw):.2f} "
+              f"TFLOP/s effective (kernel alone); {bound_text(b_bd, b_raw)}")
     out["library_ms"] = None
-    return out
+    return out, best
 
 
 def check_deep_mf_max(rx: RxChain, gen: torch.Generator,
@@ -942,7 +1038,7 @@ def drive_main_path(cfg: int, dev: torch.device, ctrl: bool = False) -> dict:
         f"{label}: only {n_ok}/{BATCH} rows decoded")
     assert torch.equal(res.payload[ok], payload[ok]), (
         f"{label}: payload differs")
-    assert all(launches[k] > 0 for k in PATH_KERNELS[cfg]), (
+    assert path_ran(launches, cfg), (
         f"{label}: launches {launches}")
     assert torch.isfinite(res.snr_db).all() and torch.isfinite(
         res.freq_offset).all()
@@ -994,7 +1090,7 @@ def drive_rescue(dev: torch.device) -> dict:
     rescued = int((ok & ~first_ok).sum())
     assert n_ok * 8 >= 7 * BATCH, f"CONFIG_0 at {esn0} dB: {n_ok}/{BATCH}"
     assert torch.equal(res.payload[ok], payload[ok])
-    assert all(launches[k] > 0 for k in PATH_KERNELS[0]), launches
+    assert path_ran(launches, 0), launches
     # two decodes: the first, and the rescue at the runner-up candidate
     assert launches["mix_fir_decimate"] == 3, launches
     print(f"CONFIG_0 at {esn0} dB: {n_ok}/{BATCH} decoded, payloads equal; "
@@ -1037,7 +1133,7 @@ def drive_near_threshold(dev: torch.device) -> dict:
     ok = res.crc_ok
     assert torch.equal(res.payload[ok], payload[ok])
     assert not bool((first_ok & ~ok).any()), "a first decode was lost"
-    assert all(launches[k] > 0 for k in PATH_KERNELS[16]), launches
+    assert path_ran(launches, 16), launches
     print(f"CONFIG_16 at {esn0} dB: {int(ok.sum())}/{BATCH} decoded, "
           f"payloads equal; first decode failed on "
           f"{int((~first_ok).sum())} rows, BICM-ID re-decoded "
@@ -1378,7 +1474,7 @@ def drive_chain_surface(dev: torch.device) -> dict:
         count(n)
         assert bool(res.crc_ok.all()) and torch.equal(res.payload, pay), (
             f"narrow CONFIG_{cfg}: {int(res.crc_ok.sum())}/{BATCH}")
-        assert all(n[k] > 0 for k in PATH_KERNELS[cfg]), n
+        assert path_ran(n, cfg), n
         fo = res.freq_offset
         print(f"cfo_range narrow CONFIG_{cfg} at +30/-30 Hz, {NARROW_DB} dB, "
               f"batch {BATCH}: "
@@ -1804,7 +1900,7 @@ def drive_pools(dev: torch.device, n_ch: int = BATCH, k_syms: int = 17,
     report("StreamPool", got, ms, pool.batched_dispatches,
            4 * pool.buf_len * pool.rows_dispatched / n_rounds,
            pool.rows_dispatched * 8 * (g.frame_bytes + 7) / n_rounds)
-    assert all(launches[k] > 0 for k in PATH_KERNELS[9]), launches
+    assert path_ran(launches, 9), launches
     print(f"pools: launches {launches}")
     return {"launches": launches, **out}
 
@@ -2026,7 +2122,7 @@ def drive_channel_parallel(dev: torch.device) -> dict:
     for k in KERNELS:
         launches[k] += n0[k]
     assert bool(res0.crc_ok.all()) and torch.equal(res0.payload, payload0)
-    assert all(n0[k] >= 8 for k in PATH_KERNELS[0]), n0
+    assert path_ran(n0, 0, 8), n0
     print(f"channel-parallel CONFIG_0 at 12 dB, 4 shards x {BATCH // 4} rows: "
           f"{int(res0.crc_ok.sum())}/{BATCH} decoded, payloads equal; wall "
           f"{ms0[0]:.2f} then {ms0[1]:.2f} ms; launches over 2 calls {n0}")
@@ -2067,7 +2163,7 @@ def drive_time_sharded(dev: torch.device) -> dict:
         counts = check_claims(f"time-sharded CONFIG_{cfg}", res, plan,
                               payloads, 4)
         assert counts["dedupes"] > 0, counts
-        assert all(n[k] > 0 for k in PATH_KERNELS[cfg]), n
+        assert path_ran(n, cfg), n
         halo = ((g.nofdm * (g.nsymb + g.preamble_nsymb) + 2 * g.nofdm)
                 * g.interp)
         claim, gd, pay = plain_claims(rx, stream, 4, halo, g.nofdm * g.interp)
@@ -2176,7 +2272,7 @@ def drive_stream_form(dev: torch.device) -> dict:
                           n_dev, k_blocks)
     rep = analysis.audit_overlap_structure(run)
     assert rep["overlap_scheduled"], rep
-    assert all(launches[k] > 0 for k in PATH_KERNELS[16]), launches
+    assert path_ran(launches, 16), launches
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2507,7 +2603,7 @@ def drive_processes(dev: torch.device) -> dict:
                  f", {counts['claimed']}/{counts['frames']} frames claimed "
                  f"once") + f"; rank 0's transfers {moves}")
     launches = {k: sum(out["launches"][k] for out in ranks) for k in KERNELS}
-    assert all(all(out["launches"][k] > 0 for k in KERNELS)
+    assert all(path_ran(out["launches"], cfg) for cfg in (16, 9, 0)
                for out in ranks), [out["launches"] for out in ranks]
     rate, link = ranks[0]["link"]
     msps = ranks[0]["msps"]
@@ -2569,7 +2665,9 @@ def drive_deep_profiles(dev: torch.device) -> dict:
         assert bool(ok.all()) and torch.equal(res.payload, payload), (
             f"CONFIG_3 {profile}: {int(ok.sum())}/{BATCH}")
         assert (res.delay - delay).abs().max().item() <= g.ngi * g.interp
-        assert all(n[k] > 0 for k in PATH_KERNELS[3]), n
+        assert path_ran(n, 3), n
+        # the "full" profile's 17-row scan keeps the surface
+        assert profile != "full" or n["deep_mf_score"] > 0, n
         print(f"deep_profile {profile!r} CONFIG_3 at 10 dB: {BATCH}/{BATCH} "
               f"decoded, payloads equal; receive {ms[0]:.2f}, "
               f"{ms[1]:.2f}, {ms[2]:.2f} ms; launches over 3 {n}")
@@ -2759,7 +2857,7 @@ def drive_qualification_tools(dev: torch.device) -> dict:
 
     t1 = time.perf_counter()
     rec = roofline.run(dev, reps=3, profile=False)
-    assert len(rec["stages"]) == 17, rec["stages"]
+    assert len(rec["stages"]) == 18, rec["stages"]
     assert all(rec["receive"][k]["decoded"] == BATCH
                for k in ("CONFIG_9", "CONFIG_3", "CONFIG_0", "timed")), rec
     times["roofline"] = time.perf_counter() - t1
@@ -2817,11 +2915,12 @@ def main() -> int:
     refine_only = {k: chains[k] for k in ("CONFIG_11", "CONFIG_13",
                                           "CONFIG_16")}
     gen = torch.Generator(device=dev).manual_seed(1234)
+    mf_score, mf_best = check_deep_mf_score(rx3, gen, refine_only,
+                                            chains["CONFIG_9"])
     stats = {"mix_fir_decimate": check_mix_fir_decimate(
                  chains, gen, PatternSignaler(build_geometry(0), device=dev),
                  {"CONFIG_0": rx0, "CONFIG_9": chains["CONFIG_9"]}),
-             "deep_mf_score": check_deep_mf_score(rx3, gen, refine_only,
-                                                  chains["CONFIG_9"]),
+             "deep_mf_score": mf_score, "deep_mf_best": mf_best,
              "deep_mf_max": check_deep_mf_max(rx0, gen),
              "pilot_cand_score": check_pilot_cand_score(rx0, gen),
              "ldpc_layered": check_ldpc_layered(dev)}

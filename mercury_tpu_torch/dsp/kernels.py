@@ -1,7 +1,7 @@
 """The receive path's hand-written CUDA kernels, each beside its plain
 PyTorch version: the mixer and decimating FIR, the matched-filter bank
-scores and their max over the bank, the pilot candidate scores, and the
-layered LDPC decode.
+scores, their max over the bank and their best lag for each hypothesis, the
+pilot candidate scores, and the layered LDPC decode.
 
 A wrapper takes the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel (built at first use by `native.load_library`)
@@ -14,6 +14,7 @@ whatever device the calling thread has current.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 from typing import ClassVar
@@ -25,7 +26,7 @@ from mercury_tpu_torch import native
 from mercury_tpu_torch.dsp import ops
 
 LAUNCHES = {"mix_fir_decimate": 0, "deep_mf_score": 0, "deep_mf_max": 0,
-            "pilot_cand_score": 0, "ldpc_layered": 0}
+            "deep_mf_best": 0, "pilot_cand_score": 0, "ldpc_layered": 0}
 _LAUNCHES_LOCK = threading.Lock()
 # hypotheses per FFT pass of deep_mf_max_ref: bounds its [B, A, 2w+1] surface
 _MAX_CHUNK = 8
@@ -256,7 +257,25 @@ def _dmf_kernel_bank(bank: torch.Tensor) -> torch.Tensor:
     TF32. Element [l, k4, G, h, row, j] is row 2(4*k4 + j) + h, column
     8G + row (zero past S): one k8 step of 8 columns is two 128-byte core
     matrices, the real rows of four samples and then their imaginary rows."""
-    pairs = _dmf_pack_pairs(bank)                            # [Lp, S, N, 2]
+    return _core_matrices(_dmf_pack_pairs(bank))
+
+
+def _dmf_best_bank(bank: torch.Tensor) -> torch.Tensor:
+    """The bank as deep_mf_best's kernel reads it: the parts side by side
+    in one matrix, column l*2A + 2a + r (r: Re, Im) of part l, hypothesis
+    a, padded to a multiple of 8 columns, in _core_matrices' layout
+    [ceil(S/4), N/8, 2, 8, 4]: the same TF32 values as _dmf_kernel_bank's."""
+    a, lp, s = bank.shape
+    pairs = _dmf_pack_pairs(bank)[:, :, :2 * a]             # [Lp, S, 2A, 2]
+    pairs = pairs.transpose(0, 1).reshape(1, s, 2 * lp * a, 2)
+    n = -(-2 * lp * a // 8) * 8
+    pairs = torch.nn.functional.pad(pairs, (0, 0, 0, n - 2 * lp * a))
+    return _core_matrices(pairs)[0]
+
+
+def _core_matrices(pairs: torch.Tensor) -> torch.Tensor:
+    """pairs [Lp, S, N, 2] (element [l, k, n, r] is row 2k + r, column n)
+    as wgmma's K-major core matrices [Lp, ceil(S/4), N/8, 2, 8, 4], TF32."""
     lp, s, n, _ = pairs.shape
     s4 = -(-s // 4)
     if s4 * 4 > s:
@@ -266,9 +285,9 @@ def _dmf_kernel_bank(bank: torch.Tensor) -> torch.Tensor:
 
 
 def _dmf_operands(seg: torch.Tensor, bank: torch.Tensor, window: int,
-                  name: str):
-    """Checks and kernel operands shared by deep_mf_score and deep_mf_max:
-    (seg, _dmf_kernel_bank, energy prefix sums, floor)."""
+                  name: str, pack=_dmf_kernel_bank):
+    """Checks and kernel operands shared by the matched-filter kernels:
+    (seg, the bank packed by `pack`, energy prefix sums, floor)."""
     _require(seg.device.type == "cuda", f"unsupported device {seg.device}")
     _, seg_len = seg.shape
     _, lp, s = bank.shape
@@ -280,7 +299,7 @@ def _dmf_operands(seg: torch.Tensor, bank: torch.Tensor, window: int,
     seg = seg.contiguous()
     # the packed, normalized bank and the energy prefix sums stay in torch,
     # as the JAX wrapper keeps t_norm outside its pallas_call
-    tmpl = _dmf_kernel_bank(bank)
+    tmpl = pack(bank)
     ce, e_floor = _energy_terms(seg, s)
     return seg, tmpl, ce, e_floor.reshape(-1)
 
@@ -351,6 +370,69 @@ def deep_mf_max(seg: torch.Tensor, bank: torch.Tensor, window: int
             smax.data_ptr(), sarg.data_ptr(), b, a, seg_len, lp, s, n_cand,
             8 * tmpl.shape[2])
     return smax, sarg
+
+
+# ---------------------------------------------------------------------------
+# The best lag of each hypothesis
+# ---------------------------------------------------------------------------
+
+def deep_mf_best_ref(seg: torch.Tensor, bank: torch.Tensor, window: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: deep_mf_score_ref, its first argmax over the lags and
+    the score there -> (lag [B, A] int64, score [B, A] float32)."""
+    score = deep_mf_score_ref(seg, bank, window)
+    lag = torch.argmax(score, dim=-1)
+    return lag, torch.gather(score, -1, lag[..., None])[..., 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _best_rows(device: torch.device, a: int, lp: int, s: int,
+               n_cand: int) -> int:
+    """The fewest rows at which deep_mf_best takes its kernel for a bank
+    [A, Lp, S] at n_cand lags on `device`, 0 where it never does (the
+    rule is the kernel file's dmf_best_rows)."""
+    with torch.cuda.device(device):
+        return int(native.load_library().dmf_best_rows(a, lp, s, n_cand))
+
+
+def deep_mf_best(seg: torch.Tensor, bank: torch.Tensor, window: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """deep_mf_score of bank [A, Lp, S] against seg [B, L] reduced over the
+    lags -> (lag [B, A] int64, the first lag reaching the best score;
+    score [B, A] float32, before /Lp). On the card, where the rows fill it
+    and the bank suits the kernel (at most 16 hypotheses; _best_rows),
+    deep_mf_best_fused's one launch, without the [B, A, 2w+1] surface;
+    else, and on the CPU, deep_mf_score's surface, its argmax and the
+    score there."""
+    if seg.device.type == "cuda":
+        rows = _best_rows(seg.device, *bank.shape, 2 * window + 1)
+        if rows and seg.shape[0] >= rows:
+            return deep_mf_best_fused(seg, bank, window)
+    score = deep_mf_score(seg, bank, window)
+    lag = torch.argmax(score, dim=-1)
+    return lag, torch.gather(score, -1, lag[..., None])[..., 0]
+
+
+def deep_mf_best_fused(seg: torch.Tensor, bank: torch.Tensor, window: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """deep_mf_best's kernel at any batch (CUDA only; a bank of at most 16
+    hypotheses whose tiles fit the card's shared memory): a block of
+    workers around the bank resident in shared memory, each walking a whole
+    row, multiplies every part's columns in one GEMM over the segment's
+    Toeplitz rows, sums each lag's parts in shared memory in order of the
+    part (deep_mf_score's sums, bit for bit) and keeps the running best, so
+    the surface never reaches device memory. -> deep_mf_best's outputs."""
+    seg, tmpl, ce, ef = _dmf_operands(seg, bank, window, "deep_mf_best",
+                                      _dmf_best_bank)
+    b, seg_len = seg.shape
+    a, lp, s = bank.shape
+    score = torch.empty((b, a), dtype=torch.float32, device=seg.device)
+    lag = torch.empty((b, a), dtype=torch.int64, device=seg.device)
+    _launch("deep_mf_best", seg, native.load_library().dmf_best_launch,
+            seg.data_ptr(), tmpl.data_ptr(), ce.data_ptr(), ef.data_ptr(),
+            score.data_ptr(), lag.data_ptr(), b, a, seg_len, lp, s,
+            2 * window + 1)
+    return lag, score
 
 
 # ---------------------------------------------------------------------------

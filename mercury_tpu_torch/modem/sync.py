@@ -7,8 +7,9 @@ metrics that no receive path calls (PyTorch port of the JAX package's
 
 The Schmidl-Cox window sums are prefix-sum differences (cumsum, then
 difference, as the JAX package computes them off the TPU); the
-matched-filter scores go through `dsp.kernels.deep_mf_score` and
-`deep_mf_max`, the pilot scores through `dsp.kernels.pilot_cand_score`.
+matched-filter scores go through `dsp.kernels.deep_mf_score`,
+`deep_mf_max` and `deep_mf_best`, the pilot scores through
+`dsp.kernels.pilot_cand_score`.
 """
 
 from __future__ import annotations
@@ -188,12 +189,11 @@ def matched_filter_refine_bank(seg: torch.Tensor, start: torch.Tensor,
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Best lag per (row, template variant): seg [B, 2*window + Lp*S],
     start [B] absolute offset of seg[0], bank [A, Lp, S] ->
-    (delay [B, A] = start + argmax lag, score [B, A] = best score / Lp)."""
-    lp = bank.shape[1]
-    score = bank_scores(seg, bank, window)
-    best = torch.argmax(score, dim=-1)                         # [B, A]
-    delay = start[:, None] + best
-    return delay, torch.gather(score, -1, best[..., None])[..., 0] / lp
+    (delay [B, A] = start + argmax lag, score [B, A] = best score / Lp).
+    kernels.deep_mf_best chooses how: the fused kernel, without the score
+    surface, where the rows fill the card, else the surface's argmax."""
+    best, top = kernels.deep_mf_best(seg, bank, window)
+    return start[:, None] + best, top / bank.shape[1]
 
 
 def matched_filter_refine(bb: torch.Tensor, coarse_delay: torch.Tensor,

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of `csrc/`.
 
 Entry points (each returns a cudaError_t; the wrappers in `dsp/kernels.py`
-call them): `mfd_launch` (mix_fir_decimate), `dmf_launch` and
-`dmf_max_launch` (deep_mf_score, deep_mf_max), `pcs_launch`
-(pilot_cand_score) and `ldpc_launch` (ldpc_layered).
+call them): `mfd_launch` (mix_fir_decimate), `dmf_launch`,
+`dmf_max_launch` and `dmf_best_launch` (deep_mf_score, deep_mf_max,
+deep_mf_best; `dmf_best_rows` gives the rows from which the last pays),
+`pcs_launch` (pilot_cand_score) and `ldpc_launch` (ldpc_layered).
 
 Each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all at
 once, and the objects are linked into one shared library with a plain C
@@ -32,7 +33,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: (name, argument types); every entry returns cudaError_t
+# C entry points: (name, argument types); each returns an int
 _SIGNATURES = {
     # pb, osc, taps, start (or NULL: every row at 0), freq (float32 Hz, or
     # NULL: no per-row offset), fs, out, batch, n, n_out, stride, offset,
@@ -46,6 +47,11 @@ _SIGNATURES = {
     # n_cols, stream
     "dmf_max_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P),
+    # seg, tmpl, ce, ef, score, lag, batch, num_a, seg_len, lp, s, n_cand,
+    # stream
+    "dmf_best_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # num_a, lp, s, n_cand (a count of rows, not a cudaError_t)
+    "dmf_best_rows": (_I, _I, _I, _I),
     # bb, idx0, fidx, bank_t, et, out, batch, n_dec, row_stride, step, m, f_n,
     # nsym, s, stream
     "pcs_launch": (_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I,

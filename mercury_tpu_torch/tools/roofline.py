@@ -134,12 +134,13 @@ def fir_bound(b: int, n: int, start, n_out: int, stride: int, offset: int,
 
 
 def mf_bound(rows: int, seg_len: int, bank_shape, n_cand: int,
-             out_bytes: int) -> dict:
+             out_bytes: int, per_lag: bool = True) -> dict:
     """Matched-filter bound: seg (8 B a sample), bank, outputs of out_bytes
-    per (row, lag); 8 flops per complex multiply-add at the TF32 peak."""
+    per (row, lag), or with per_lag False per (row, hypothesis)
+    (deep_mf_best); 8 flops per complex multiply-add at the TF32 peak."""
     a, lp, s = bank_shape
-    return bound(8 * rows * seg_len + 8 * a * lp * s
-                 + out_bytes * rows * n_cand,
+    outs = rows * (n_cand if per_lag else a)
+    return bound(8 * rows * seg_len + 8 * a * lp * s + out_bytes * outs,
                  8.0 * rows * a * n_cand * lp * s, "TF32")
 
 
@@ -183,16 +184,25 @@ def fir_raw(pb, osc, taps, stride, start=None, n_out=None, offset=None,
 
 
 def mf_raw(name: str, seg, bank, window: int, outs):
-    """A raw launch of a matched-filter kernel on _dmf_operands' operands
-    (packing and prefix sums done once, outside the timing)."""
+    """A raw launch of a matched-filter kernel (deep_mf_score, deep_mf_max
+    or deep_mf_best) on _dmf_operands' operands (packing and prefix sums
+    done once, outside the timing)."""
     lib = native.load_library()
-    seg, tmpl, ce, ef = kernels._dmf_operands(seg, bank, window, name)
+    best = name == "deep_mf_best"
+    seg, tmpl, ce, ef = kernels._dmf_operands(
+        seg, bank, window, name,
+        kernels._dmf_best_bank if best else kernels._dmf_kernel_bank)
     b, seg_len = seg.shape
     a, lp, s = bank.shape
-    fn = lib.dmf_launch if name == "deep_mf_score" else lib.dmf_max_launch
     operands = (seg, tmpl, ce, ef, *outs)        # alive as long as the launch
-    return lambda: fn(*[t.data_ptr() for t in operands], b, a, seg_len, lp, s,
-                      2 * window + 1, 8 * tmpl.shape[2], kernels._stream(seg))
+    ptrs = [t.data_ptr() for t in operands]
+    if best:
+        return lambda: lib.dmf_best_launch(*ptrs, b, a, seg_len, lp, s,
+                                           2 * window + 1,
+                                           kernels._stream(seg))
+    fn = lib.dmf_launch if name == "deep_mf_score" else lib.dmf_max_launch
+    return lambda: fn(*ptrs, b, a, seg_len, lp, s, 2 * window + 1,
+                      8 * tmpl.shape[2], kernels._stream(seg))
 
 
 def pcs_raw(bb_dec, idx0, fidx, bank, prepared=None):
@@ -614,18 +624,37 @@ def stages(device) -> list[Stage]:
     w = SCAN_WINDOW
     seg_len = 2 * w + bank3.shape[1] * bank3.shape[2]
 
-    def make_scan():
-        seg = 0.05 * _randn((BATCH, seg_len), 8, device, complex_=True)
-        outs = [torch.empty((BATCH, bank3.shape[0], 2 * w + 1),
-                            device=device)]
-        return {"eager": lambda: kernels.deep_mf_score(seg, bank3, w),
-                "raw": mf_raw("deep_mf_score", seg, bank3, w, outs)
-                if device.type == "cuda" else None, "graph": False}
+    def make_scan(bank, fused):
+        def make():
+            seg = 0.05 * _randn((BATCH, seg_len), 8, device, complex_=True)
+            a = bank.shape[0]
+            if fused:
+                outs = [torch.empty((BATCH, a), device=device),
+                        torch.empty((BATCH, a), dtype=torch.int64,
+                                    device=device)]
+                eager = lambda: kernels.deep_mf_best_fused(seg, bank, w)
+            else:
+                outs = [torch.empty((BATCH, a, 2 * w + 1), device=device)]
+                eager = lambda: kernels.deep_mf_score(seg, bank, w)
+            name = "deep_mf_best" if fused else "deep_mf_score"
+            return {"eager": eager,
+                    "raw": mf_raw(name, seg, bank, w, outs)
+                    if device.type == "cuda" else None, "graph": False}
+        return make
     out.append(Stage(
         "CONFIG_3 scan", f"[{BATCH},{seg_len}]x{list(bank3.shape)} w={w}",
-        mf_bound(BATCH, seg_len, bank3.shape, 2 * w + 1, 4), make_scan,
-        "mercury_tpu/dsp/pallas_kernels.py:298",
-        "kernels.deep_mf_score (wgmma TF32)", ("CONFIG_3", "scan")))
+        mf_bound(BATCH, seg_len, bank3.shape, 2 * w + 1, 12, per_lag=False),
+        make_scan(bank3, True), "mercury_tpu/modem/sync.py:197",
+        "kernels.deep_mf_best_fused (wgmma TF32, the best lag of each "
+        "hypothesis)", ("CONFIG_3", "scan")))
+    bank17 = rx3._rotated_bank(tmpl, np.arange(-8, 9) * 15.0, 8)
+    out.append(Stage(
+        "CONFIG_3 scan, full profile",
+        f"[{BATCH},{seg_len}]x{list(bank17.shape)} w={w}",
+        mf_bound(BATCH, seg_len, bank17.shape, 2 * w + 1, 4),
+        make_scan(bank17, False), "mercury_tpu/dsp/pallas_kernels.py:298",
+        "kernels.deep_mf_score (wgmma TF32, the score surface): "
+        "deep_profile=\"full\"'s 17-row grid", ("CONFIG_3", "")))
 
     rx0 = RxChain(build_geometry(0), device=device)
     _, bank0, pil, prepared = rx0._coherent_banks(8)
@@ -800,13 +829,15 @@ def time_stage(st: Stage, device, flush: torch.Tensor, reps: int,
 def counting(rx: RxChain):
     """Count, while inside, the calls a receive of rx makes of each stage:
     kernels' wrappers (the TS FIR: no per-row starts; the data FIR: with
-    them; deep_mf_score: the whole-buffer scan at SCAN_WINDOW, else a
-    refine), sync.schmidl_cox_metric, ops.ofdm_demod, the grid statistics
-    (one channel estimate each), the LDPC decodes (kernels.ldpc_layered)
-    and their sweeps (the most any row of a decode ran, summed)."""
+    them; deep_mf_best, by the fused kernel or the surface: the
+    whole-buffer scan at SCAN_WINDOW, else a refine),
+    sync.schmidl_cox_metric, ops.ofdm_demod, the grid statistics (one
+    channel estimate each), the LDPC decodes (kernels.ldpc_layered) and
+    their sweeps (the most any row
+    of a decode ran, summed)."""
     calls = {k: 0 for k in ("ts", "data", "scan", "refine", "dmax", "pcs",
                             "sc", "demod", "est", "ldpc", "sweep")}
-    saved = [(kernels, "mix_fir_decimate"), (kernels, "deep_mf_score"),
+    saved = [(kernels, "mix_fir_decimate"), (kernels, "deep_mf_best"),
              (kernels, "deep_mf_max"), (kernels, "pilot_cand_score"),
              (sync, "schmidl_cox_metric"), (ops, "ofdm_demod"),
              (kernels, "ldpc_layered")]

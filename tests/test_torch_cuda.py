@@ -7,7 +7,11 @@ Tolerances as in tests/test_torch_kernels.py: FIR atol 1e-5 / rtol 1e-4,
 matched-filter scores and their max over the bank rtol/atol 1e-3 with equal
 argmax lags (on every row in the first score case, on the planted rows and
 wherever the top two lags differ by more than 1e-3 in the ragged cases) and
-equal argmax hypotheses where the top two differ by more than 1e-3, pilot
+equal argmax hypotheses where the top two differ by more than 1e-3; the
+best lag and score of each (row, hypothesis), deep_mf_best, bit-equal to
+deep_mf_score's surface, its first argmax and the score there (the same
+TF32 products summed in the same order), with no surface allocated on the
+receive's refine path where the rows fill the card; pilot
 scores rtol 1e-4 / atol 1e-5 (float32 sums in another order). The
 layered LDPC decode as mercury_tpu_torch.tools.roofline.ldpc_agree holds
 it (chip_smoke.py holds it the same way): min-sum bit-exact in bits,
@@ -361,6 +365,164 @@ def test_deep_mf_max_kernel_first_hypothesis_wins_ties(cuda_device):
     assert int(sarg[0, 211]) == 3 and int(smax[0].argmax()) == 211
     clear = _clear(kernels.deep_mf_score_ref(seg_t, bank_t, 300), 1)
     assert torch.equal(sarg[clear], ref_arg[clear])
+
+
+# deep_mf_best at the receive's shapes: c3's scan (rows cut), the refines
+# of CONFIG_3/9 (Lp 4), 11 (3), 13 (2) and 16 (1) against the three CFO
+# aliases, c2f's 5-row bank and 16 hypotheses on a 15 Hz grid
+ALIASES = (0.0, 93.75, -93.75)
+BEST = [dict(cfg=3, freqs=tuple(np.arange(-4, 5) * 30.0), rows=24,
+             window=7140),
+        dict(cfg=9, freqs=ALIASES, rows=48, window=272),
+        dict(cfg=11, freqs=ALIASES, rows=48, window=272),
+        dict(cfg=13, freqs=ALIASES, rows=48, window=272),
+        dict(cfg=16, freqs=ALIASES, rows=48, window=272),
+        dict(cfg=3, freqs=ALIASES + (15.0, -15.0), rows=48, window=272),
+        dict(cfg=3, freqs=tuple(np.arange(-8, 8) * 15.0), rows=8,
+             window=600)]
+BEST_IDS = ["scan", "refine-CONFIG_9", "refine-CONFIG_11", "refine-CONFIG_13",
+            "refine-CONFIG_16", "c2f", "16-hypotheses"]
+_CHAINS = {}
+
+
+def _receive_bank(cfg, freqs, device):
+    """The chain's decimated preamble templates rotated to freqs, as the
+    receive builds its scan and refine banks."""
+    if cfg not in _CHAINS:
+        _CHAINS[cfg] = RxChain(build_geometry(cfg), device=device)
+    rx = _CHAINS[cfg]
+    return rx._rotated_bank(rx._mf_templates[:, ::8], freqs, 8)
+
+
+def _planted(bank, rows, window, seed):
+    """Noise rows, each with one template of the bank at a random lag, the
+    last row silent."""
+    a, lp, s = bank.shape
+    gen = torch.Generator(device=bank.device).manual_seed(seed)
+    shape = (rows, 2 * window + lp * s)
+    seg = torch.complex(torch.randn(shape, generator=gen, device=bank.device),
+                        torch.randn(shape, generator=gen, device=bank.device))
+    seg = 0.05 * seg
+    hyp = torch.randint(0, a, (rows,), generator=gen, device=bank.device)
+    lag = torch.randint(0, 2 * window + 1, (rows,), generator=gen,
+                        device=bank.device)
+    idx = lag[:, None] + torch.arange(lp * s, device=bank.device)[None]
+    seg.scatter_add_(1, idx, bank[hyp].reshape(rows, -1))
+    seg[-1] = 0
+    return seg, hyp, lag
+
+
+def _surface_best(seg, bank, window):
+    """The surface kernel, its first argmax over the lags and the score
+    there: what the receive computed before deep_mf_best."""
+    score = kernels.deep_mf_score(seg, bank, window)
+    lag = score.argmax(-1)
+    return lag, torch.gather(score, -1, lag[..., None])[..., 0]
+
+
+def _best_equal(seg, bank, window):
+    """deep_mf_best's kernel (one launch, at any batch) bit-equal to
+    _surface_best: the same TF32 products, summed over K and over the parts
+    in the same order."""
+    before = kernels.LAUNCHES["deep_mf_best"]
+    lag, score = kernels.deep_mf_best_fused(seg, bank, window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["deep_mf_best"] == before + 1
+    want_lag, want = _surface_best(seg, bank, window)
+    assert lag.dtype == torch.int64 and score.dtype == torch.float32
+    assert torch.equal(lag, want_lag), int((lag != want_lag).sum())
+    assert torch.equal(score, want), float((score - want).abs().max())
+    return lag, score
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BEST, ids=BEST_IDS)
+def test_deep_mf_best_kernel_matches_surface(cuda_device, case):
+    bank = _receive_bank(case["cfg"], case["freqs"], cuda_device)
+    seg, hyp, lag = _planted(bank, case["rows"], case["window"], 26)
+    got_lag, got = _best_equal(seg, bank, case["window"])
+    r = torch.arange(case["rows"] - 1, device=cuda_device)
+    assert torch.equal(got_lag[r, hyp[:-1]], lag[:-1])
+    # the silent row: every lag gated to 0, so the first lag wins
+    assert (got_lag[-1] == 0).all() and (got[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED[:2], ids=RAGGED_IDS[:2])
+def test_deep_mf_best_kernel_ragged_shapes(cuda_device, case):
+    seg, bank = _ragged_case(case, cuda_device)
+    lag, score = _best_equal(seg, bank, case["window"])
+    assert int(lag[1, case["a"] - 1]) == case["window"] + 17
+    assert (lag[3] == 0).all() and (score[3] == 0).all()    # silent row
+
+
+@pytest.mark.cuda
+def test_deep_mf_best_kernel_duplicated_template(cuda_device):
+    """Row 5 of the scan's bank duplicates row 2: the two take the same
+    best lag and score in every row."""
+    bank = _receive_bank(3, tuple(np.arange(-4, 5) * 30.0), cuda_device)
+    bank[5] = bank[2]
+    seg, _hyp, _lag = _planted(bank, 6, 7140, 27)
+    lag, score = _best_equal(seg, bank, 7140)
+    assert torch.equal(lag[:, 5], lag[:, 2])
+    assert torch.equal(score[:, 5], score[:, 2])
+
+
+@pytest.mark.cuda
+def test_refine_bank_on_card_keeps_no_surface(cuda_device, monkeypatch):
+    """sync.matched_filter_refine_bank on the card takes deep_mf_best's
+    kernel for the scan's 9-row bank from the rows kernels._best_rows
+    names on, allocating no [B, A, 2w+1] surface, and gives the surface
+    path's delays and scores; a row fewer, a 17-row bank (the "full"
+    profile's grid) and refine_decode's bank (its parts add more Toeplitz
+    rows than it has lags) keep deep_mf_score's surface and its argmax."""
+    from mercury_tpu_torch.modem import sync
+    narrow = _receive_bank(3, tuple(np.arange(-4, 5) * 30.0), cuda_device)
+    wide = _receive_bank(3, tuple(np.arange(-8, 9) * 15.0), cuda_device)
+    window = 7140
+    rows = kernels._best_rows(cuda_device, *narrow.shape, 2 * window + 1)
+    assert 1 < rows <= 1024
+    seg, _hyp, _lag = _planted(narrow, rows, window, 28)
+    start = torch.arange(rows, device=cuda_device)
+    surface = kernels.deep_mf_score
+
+    def peak_growth(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        base = torch.cuda.memory_allocated(cuda_device)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(cuda_device) - base
+
+    (want_lag, want), surface_grew = peak_growth(
+        lambda: _surface_best(seg, narrow, window))
+
+    def no_surface(*args, **kw):
+        raise AssertionError("deep_mf_score called for a narrow bank")
+    monkeypatch.setattr(kernels, "deep_mf_score", no_surface)
+    before = dict(kernels.LAUNCHES)
+    (delay, score), grew = peak_growth(
+        lambda: sync.matched_filter_refine_bank(seg, start, narrow, window))
+    # the surface alone outweighs all the fused path allocates
+    surface_bytes = 4 * rows * narrow.shape[0] * (2 * window + 1)
+    assert grew < surface_bytes <= surface_grew
+    assert kernels.LAUNCHES["deep_mf_best"] == before["deep_mf_best"] + 1
+    assert torch.equal(delay, start[:, None] + want_lag)
+    assert torch.equal(score, want / narrow.shape[1])
+    monkeypatch.setattr(kernels, "deep_mf_score", surface)
+    rd = _CHAINS[3]._mf_templates[None]
+    assert kernels._best_rows(cuda_device, *rd.shape, 513) == 0
+    rd_seg = 0.05 * torch.randn((4, 512 + rd.shape[1] * rd.shape[2]),
+                                dtype=torch.complex64, device=cuda_device)
+    for args in ((seg[:rows - 1], start[:rows - 1], narrow, window),
+                 (seg[:4], start[:4], wide, window),
+                 (rd_seg, start[:4], rd, 256)):
+        before = dict(kernels.LAUNCHES)
+        delay, score = sync.matched_filter_refine_bank(*args)
+        assert kernels.LAUNCHES["deep_mf_score"] == before["deep_mf_score"] + 1
+        assert kernels.LAUNCHES["deep_mf_best"] == before["deep_mf_best"]
+        want_lag, _ = _surface_best(args[0], args[2], args[3])
+        assert torch.equal(delay, args[1][:, None] + want_lag)
 
 
 def _pilot_case(device):

@@ -207,6 +207,109 @@ def test_packed_bank_toeplitz_gemm_matches_plain(case):
     assert ((kb.view(torch.int32) & 0x1FFF) == 0).all()
 
 
+# deep_mf_best's cases: the refine's layout (3 aliases, four parts), c2f's
+# 5-row bank with a silent row, 16 hypotheses of two short parts (a tile
+# taller than S: the kernel adds the parts in passes), one part with a
+# duplicated template
+BEST_CASES = [
+    dict(seed=41, a=3, lp=4, s=136, window=272, rows=3, plant=(1, 2, 300)),
+    dict(seed=42, a=5, lp=4, s=40, window=120, rows=3, plant=(0, 4, 17),
+         silent=2),
+    dict(seed=43, a=16, lp=2, s=24, window=90, rows=2, plant=(1, 15, 0)),
+    dict(seed=44, a=4, lp=1, s=67, window=60, rows=2, plant=(0, 1, 33),
+         twin=(3, 1)),
+]
+BEST_IDS = ["refine", "c2f-silent", "16-hypotheses", "one-part-twin"]
+
+
+def _best_case(case):
+    case = dict(case)
+    silent, twin = case.pop("silent", None), case.pop("twin", None)
+    seg, bank = _deep_case(**case)
+    if twin is not None:
+        bank[twin[0]] = bank[twin[1]]
+    if silent is not None:
+        seg[silent] = 0.0
+    return torch.as_tensor(seg), torch.as_tensor(bank)
+
+
+@pytest.fixture
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.mark.parametrize("case", BEST_CASES, ids=BEST_IDS)
+def test_deep_mf_best_plain_matches_surface_and_jax(case, one_thread):
+    """deep_mf_best's plain version is deep_mf_score_ref's first argmax over
+    the lags and the score there; the JAX package's
+    sync.matched_filter_refine_bank finds the same lags on the same numpy
+    inputs, scores / Lp within rtol 1e-4 (its own FFT scoring). A silent
+    row's lags are all gated to 0, so lag 0 wins; a duplicated template
+    takes its twin's lag and score."""
+    from mercury_tpu.modem import sync as jsync
+    seg, bank = _best_case(case)
+    window, lp = case["window"], case["lp"]
+    lag, score = kernels.deep_mf_best(seg, bank, window)
+    surface = kernels.deep_mf_score_ref(seg, bank, window)
+    assert lag.dtype == torch.int64 and score.dtype == torch.float32
+    assert torch.equal(lag, surface.argmax(-1))
+    assert torch.equal(score, torch.gather(surface, -1, lag[..., None])[..., 0])
+    start = np.arange(seg.shape[0]) * 7
+    d_j, s_j = jsync.matched_filter_refine_bank(
+        jnp.asarray(seg.numpy()), jnp.asarray(start), bank.numpy(), window)
+    np.testing.assert_array_equal(lag.numpy() + start[:, None], np.asarray(d_j))
+    np.testing.assert_allclose(score.numpy() / lp, np.asarray(s_j), rtol=1e-4,
+                               atol=1e-6)
+    row, hyp, at = case["plant"]
+    assert int(lag[row, hyp]) == at
+    if "silent" in case:
+        assert (lag[case["silent"]] == 0).all()
+        assert (score[case["silent"]] == 0).all()
+    if "twin" in case:
+        a, b = case["twin"]
+        assert torch.equal(lag[:, a], lag[:, b])
+        assert torch.equal(score[:, a], score[:, b])
+
+
+@pytest.mark.parametrize("case", BEST_CASES[:3], ids=BEST_IDS[:3])
+def test_best_bank_one_gemm_over_toeplitz_rows(case, one_thread):
+    """deep_mf_best's operand: every part's columns side by side (column
+    l*2A + 2a + r), the TF32 values of dmf_pack_bank's parts, in wgmma's
+    core matrices. One product of each Toeplitz row r of the segment with
+    it, |.| of each column pair gated by row r's energy and added to lag
+    r - l*S, reproduces deep_mf_score_ref."""
+    seg, bank = _best_case(case)
+    a, lp, s = bank.shape
+    window = case["window"]
+    n_cand = 2 * window + 1
+    n = -(-2 * lp * a // 8) * 8
+    s4 = -(-s // 4)
+    kb = kernels._dmf_best_bank(bank)
+    assert kb.shape == (s4, n // 8, 2, 8, 4) and kb.is_contiguous()
+    # [k4, G, h, row, j] is row 2(4*k4 + j) + h, column 8G + row
+    mat = kb.permute(0, 4, 2, 1, 3).reshape(8 * s4, n)[:2 * s]
+    packed = kernels.dmf_pack_bank(bank)[..., :2 * a]       # [Lp, 2S, 2A]
+    side = torch.cat(list(packed), dim=1)                  # [2S, 2*Lp*A]
+    assert torch.equal(mat[:, :2 * lp * a], kernels._tf32(side))
+    assert (mat[:, 2 * lp * a:] == 0).all()
+    n_rows = n_cand + (lp - 1) * s
+    x = torch.view_as_real(seg)[:, :n_rows + s - 1].unfold(1, s, 1)
+    rows = x.transpose(-1, -2).reshape(seg.shape[0], n_rows, 2 * s)
+    c = torch.linalg.vector_norm(
+        (rows @ side).reshape(seg.shape[0], n_rows, lp, a, 2), dim=-1)
+    ce, ef = kernels._energy_terms(seg, s)
+    e = ce[:, s: s + n_rows] - ce[:, :n_rows]
+    w = torch.where(e > ef, torch.rsqrt(torch.maximum(e, ef)), 0.0)
+    v = c * w[..., None, None]                             # [B, rows, Lp, A]
+    got = sum(v[:, l * s: l * s + n_cand, l] for l in range(lp))
+    want = kernels.deep_mf_score_ref(seg, bank, window)
+    torch.testing.assert_close(got.transpose(1, 2), want, rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_tf32_rounding_is_nearest_ties_away():
     one = 1.0
     x = torch.tensor([one + 2 ** -12, one + 2 ** -11, -(one + 2 ** -11),
@@ -243,9 +346,13 @@ def test_cpu_tensors_take_the_plain_versions(geom):
     for got, want in zip(kernels.ldpc_layered(llr, plan, 3, soft=True),
                          kernels.layered_decode_ref(llr, plan, 3, soft=True)):
         assert torch.equal(got, want)
+    lag, best = kernels.deep_mf_best(torch.as_tensor(seg),
+                                     torch.as_tensor(bank), 20)
+    torch.testing.assert_close(lag, s.argmax(-1), rtol=0, atol=0)
+    torch.testing.assert_close(best, s.amax(-1), rtol=0, atol=0)
     assert set(kernels.LAUNCHES) == {"mix_fir_decimate", "deep_mf_score",
-                                     "deep_mf_max", "pilot_cand_score",
-                                     "ldpc_layered"}
+                                     "deep_mf_max", "deep_mf_best",
+                                     "pilot_cand_score", "ldpc_layered"}
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.mix_fir_decimate(pb.to("meta"), osc.to("meta"),
@@ -256,6 +363,9 @@ def test_cpu_tensors_take_the_plain_versions(geom):
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.deep_mf_max(torch.as_tensor(seg).to("meta"),
                             torch.as_tensor(bank).to("meta"), 20)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.deep_mf_best(torch.as_tensor(seg).to("meta"),
+                             torch.as_tensor(bank).to("meta"), 20)
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.pilot_cand_score(bb.to("meta"), idx0.to("meta"),
                                  idx0.to("meta"), pil.to("meta"))
